@@ -12,6 +12,10 @@ Phases, each printed on its own lines, in order:
             floats within 1e-3. Each gets its median time over 50 launches
             (CUDA events), its bound, the plain version's time and, for the
             warp, the time of F.grid_sample (a yardstick the port never calls).
+            The detection head is held and timed on two inputs: 64 of 256
+            candidates above the score threshold, and all 256 above in a
+            crowd of overlapping boxes. The warp is also held on faces far
+            larger than the frame.
 4. engine   the port's RecognitionEngine on cuda in the default profile (det
             640, 16 slots, top-256, bf16, spoof and quality on, MobileFaceNet,
             the shipped weights) over a DeltaEncoder stream of 8 rendered 640
@@ -52,7 +56,9 @@ from frp_tpu_torch.engine.pipeline import RecognitionEngine
 from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
+from frp_tpu_torch.ops.decode import decode_boxes
 from frp_tpu_torch.ops.nms import overlap_matrix
+from frp_tpu_torch.testing.payloads import crowd_payload
 from frp_tpu_torch.testing.synthetic import make_scene
 
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at the 700 W limit)
@@ -174,9 +180,18 @@ def launches() -> dict[str, int]:
 
 # --- phase 3: each kernel against its plain version --------------------------
 
-def check_detection_head(dev, b=FRAMES, det=640, k=256, m=16) -> dict:
-    """Kernel 1 at B=8, K=256, M=16 on the 16800 anchors of det 640: random
-    head outputs with 64 confident anchors a frame."""
+HEAD_ARGS = (16, 0.5, 0.4, 0.5, 640.0)  # M, conf, iou, iom thresholds, det size
+
+
+def head_payload(dev, crowd: bool, b=FRAMES, det=640, k=256) -> torch.Tensor:
+    """Kernel 1's payload [B, K, 19] at B=8, K=256. The usual input: random
+    head outputs over the 16800 anchors of det 640 with 64 confident anchors
+    a frame, through the top-K. The crowd: all 256 candidates above the score
+    threshold, their boxes scattered around four centres a frame, so that a
+    large share of the pairs intersect (``testing/payloads.py``)."""
+    if crowd:
+        rng = np.random.default_rng(SEED + 7)
+        return torch.from_numpy(crowd_payload(rng, b, k, n_above=k)).to(dev)
     rng = np.random.default_rng(SEED)
     priors = torch.from_numpy(generate_anchors(det).copy()).to(dev)
     a = priors.shape[0]
@@ -186,51 +201,86 @@ def check_detection_head(dev, b=FRAMES, det=640, k=256, m=16) -> dict:
     for i in range(b):
         scores[i, rng.choice(a, 64, replace=False)] = rng.uniform(0.5, 1.0, 64)
     loc, ldm, scores = (torch.from_numpy(x).to(dev) for x in (loc, ldm, scores))
-    payload = detection_cuda.build_payload(loc, ldm, scores, priors, k)
-    args = (m, 0.5, 0.4, 0.5, float(det))
-    got = detection_cuda.fused_head_kernel(payload, *args)
-    want = detection_cuda.fused_head_plain(payload, *args)
+    return detection_cuda.build_payload(loc, ldm, scores, priors, k)
+
+
+def check_detection_head(dev, crowd: bool = False) -> dict:
+    """Kernel 1 at B=8, K=256, M=16 on one of its two inputs."""
+    payload = head_payload(dev, crowd)
+    b, k, _ = payload.shape
+    got = detection_cuda.fused_head_kernel(payload, *HEAD_ARGS)
+    want = detection_cuda.fused_head_plain(payload, *HEAD_ARGS)
     torch.cuda.synchronize()
     if not torch.equal(got[..., 15], want[..., 15]):
         raise AssertionError("detection_head: valid slots differ from the plain version")
     err = max_err(got, want)
     if not err <= ATOL:
         raise AssertionError(f"detection_head: max abs err {err} > {ATOL}")
+    above = payload[..., 18] >= HEAD_ARGS[1]
+    boxes = decode_boxes(payload[..., 0:4], payload[..., 14:18], HEAD_ARGS[4])
+    meet = torch.triu(overlap_matrix(boxes, 0.4, 0.5) > 0, 1)
     # per candidate pair j > i: 19 operations of the effective overlap and one
-    # compare; per candidate about 70 of box and landmark decode
+    # compare; per candidate about 70 of box and landmark decode. This is the
+    # function's nominal work: the kernel skips the pairs the greedy pass
+    # cannot read, so a share of this bound is no efficiency
     ops = b * k * (k - 1) / 2 * 20 + b * k * 70
     bms, by = bound(payload.numel() * 4 + got.numel() * 4, ops)
     return dict(
-        shape=f"B={b} K={k} M={m} A={a}", max_abs_err=err,
-        ms=device_ms(lambda: detection_cuda.fused_head_kernel(payload, *args)),
-        plain_ms=device_ms(lambda: detection_cuda.fused_head_plain(payload, *args), 10, True),
+        shape=f"B={b} K={k} M={HEAD_ARGS[0]}, {int(above.sum()) // b} above a frame, "
+              f"{100 * float(meet.sum()) / (b * k * (k - 1) / 2):.1f} % of pairs intersect",
+        max_abs_err=err,
+        ms=device_ms(lambda: detection_cuda.fused_head_kernel(payload, *HEAD_ARGS)),
+        plain_ms=device_ms(lambda: detection_cuda.fused_head_plain(payload, *HEAD_ARGS), 10, True),
         bound_ms=bms, bound_by=by, library_ms=None,
     )
 
 
-def check_warp_crops(dev, frames: torch.Tensor, m=16, s=112) -> dict:
-    """Kernel 2 on the rendered uint8 frames [8, 640, 640, 3] with 16 faces a
-    frame of mixed size (45 to 560 px) and rotation (up to 40 degrees), four
-    of them centred on the border."""
-    b, h, w, _ = frames.shape
+def face_matrices(th, sc, c, s: int) -> np.ndarray:
+    """Forward similarities [..., 2, 3] (source px -> crop px) of faces
+    rotated by th, scaled by sc, whose centre c lands on the crop's centre."""
+    ca, sa = sc * np.cos(th), sc * np.sin(th)
+    half = s / 2
+    return np.stack([
+        np.stack([ca, -sa, half - (ca * c[..., 0] - sa * c[..., 1])], -1),
+        np.stack([sa, ca, half - (sa * c[..., 0] + ca * c[..., 1])], -1),
+    ], -2).astype(np.float32)
+
+
+def warp_faces(dev, b: int, h: int, w: int, m=16, s=112) -> torch.Tensor:
+    """Kernel 2's inverse matrices [B, 16, 2, 3]: faces of mixed size (45 to
+    560 px) and rotation (up to 40 degrees), four of them centred on the
+    border."""
     rng = np.random.default_rng(SEED + 1)
     th = rng.uniform(-0.7, 0.7, (b, m))
     sc = rng.uniform(0.2, 2.5, (b, m))
     c = rng.uniform(0, [w, h], (b, m, 2))
     c[:, 0, 0], c[:, 1, 0], c[:, 2, 1], c[:, 3, 1] = 0, w - 1, 0, h - 1
-    ca, sa = sc * np.cos(th), sc * np.sin(th)
-    half = s / 2
-    mats = np.stack([
-        np.stack([ca, -sa, half - (ca * c[..., 0] - sa * c[..., 1])], -1),
-        np.stack([sa, ca, half - (sa * c[..., 0] + ca * c[..., 1])], -1),
-    ], -2).astype(np.float32)
-    inv = invert_similarity(torch.from_numpy(mats).to(dev))
+    return invert_similarity(torch.from_numpy(face_matrices(th, sc, c, s)).to(dev))
+
+
+def check_warp_crops(dev, frames: torch.Tensor, m=16, s=112) -> dict:
+    """Kernel 2 on the rendered uint8 frames [8, 640, 640, 3] with 16 faces a
+    frame, and on two faces a frame far larger than the frame."""
+    b, h, w, _ = frames.shape
+    inv = warp_faces(dev, b, h, w, m, s)
     got = align_cuda.warp_crops_kernel(frames, inv, s)
     want = align_cuda.warp_crops_plain(frames, inv, s)
     torch.cuda.synchronize()
     err = max_err(got, want)
     if not err <= ATOL:
         raise AssertionError(f"warp_crops: max abs err {err} > {ATOL}")
+
+    # faces of 1100 and 1900 px centred in the frame: a 16 x 16 tile of the
+    # crop spans 160 source px and more, and most of each crop is the frame's
+    # clamped border
+    centre = np.broadcast_to(np.array([w / 2, h / 2]), (b, 2, 2))
+    big = face_matrices(np.broadcast_to([0.5, -0.3], (b, 2)),
+                        np.broadcast_to([0.1, 0.06], (b, 2)), centre, s)
+    big = invert_similarity(torch.from_numpy(big).to(dev))
+    big_err = max_err(align_cuda.warp_crops_kernel(frames, big, s),
+                      align_cuda.warp_crops_plain(frames, big, s))
+    if not big_err <= ATOL:
+        raise AssertionError(f"warp_crops, faces larger than the frame: max abs err {big_err} > {ATOL}")
 
     # the yardstick: one grid_sample over the f32 NCHW frames, every face's
     # 112 x 112 sample grid stacked along the output height
@@ -252,7 +302,7 @@ def check_warp_crops(dev, frames: torch.Tensor, m=16, s=112) -> dict:
     ops = b * m * s * s * (14 + 3 * 6)
     bms, by = bound(frames.numel() + inv.numel() * 4 + got.numel() * 4, ops)
     return dict(
-        shape=f"B={b} {h}x{w} M={m} S={s}", max_abs_err=err,
+        shape=f"B={b} {h}x{w} M={m} S={s}", max_abs_err=err, large_face_max_abs_err=big_err,
         library_max_abs_err=max_err(lib, want),
         ms=device_ms(lambda: align_cuda.warp_crops_kernel(frames, inv, s)),
         plain_ms=device_ms(lambda: align_cuda.warp_crops_plain(frames, inv, s), 20, True),
@@ -441,14 +491,20 @@ def main() -> int:
         "warp_crops": check_warp_crops(dev, frames),
         "greedy_nms": check_greedy_nms(dev, 512),
     }
+    crowd = check_detection_head(dev, crowd=True)
     k256 = check_greedy_nms(dev, 256)
-    for name, c in [*checks.items(), ("greedy_nms", k256)]:
+    for name, c in [*checks.items(), ("detection_head", crowd), ("greedy_nms", k256)]:
         say("kernels", f"{name} {c['shape']}: equal to plain (max abs err {c['max_abs_err']:.3g}); "
             f"kernel {c['ms'] * 1e3:.1f} us, bound {c['bound_ms'] * 1e3:.3f} us by {c['bound_by']}, "
             f"plain {c['plain_ms'] * 1e3:.1f} us"
             + (f", grid_sample {c['library_ms'] * 1e3:.1f} us (max abs diff "
-               f"{c['library_max_abs_err']:.3g})" if c["library_ms"] is not None else ""))
+               f"{c['library_max_abs_err']:.3g})" if c["library_ms"] is not None else "")
+            + (f"; faces far larger than the frame: max abs err "
+               f"{c['large_face_max_abs_err']:.3g}" if "large_face_max_abs_err" in c else ""))
     say("kernels", "all three kernels equal their plain versions")
+    one = torch.zeros(1, device=dev)
+    say("kernels", "for scale, a one-element add timed the same way (a launch and the "
+        f"events around it): {device_ms(lambda: one.add_(1.0)) * 1e3:.1f} us")
 
     scan = run_scan(dev, scenes, PROFILE, TICKS, WARM)
     say("engine", f"default profile, {FRAMES} x 640 I420 delta stream, {TICKS} ticks "
@@ -479,6 +535,9 @@ def main() -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })
+    # kernel 1 on its second input, all 256 candidates above in a crowd
+    rows[0].update(ms_all_above=crowd["ms"], plain_ms_all_above=crowd["plain_ms"],
+                   max_abs_err_all_above=crowd["max_abs_err"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

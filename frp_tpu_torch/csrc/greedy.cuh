@@ -2,17 +2,29 @@
 // (detection_head.cu) and the stand-alone greedy pass (greedy_nms.cu).
 //
 // Layout: mask[i * words + w] holds bit b set when candidate j = 32*w + b
-// ranks below i (j > i) and overlaps i above the threshold. above[w] holds
-// bit b set when candidate 32*w + b passes the score threshold; bits of
-// candidates past K are clear.
+// ranks below i (j > i) and overlaps i above the threshold; no bit at or
+// before the diagonal is ever set. above[w] holds bit b set when candidate
+// 32*w + b passes the score threshold; bits of candidates past K are clear.
+// Only rows of candidates above are read.
 //
-// One warp walks the ranks in order. Lane w owns word w of the suppressed
-// set, so words <= 32 and K <= 1024. At rank i the owner lane's word is
-// broadcast; when rank i is above and not yet suppressed, every lane ORs in
-// its word of row i (lanes >= words hold zeros). Row i is read one rank
-// ahead, so no memory access sits on the chain of dependent steps. The walk
-// stops after the last above rank: a rank that is not above suppresses
-// nothing, and none after it can be alive.
+// One warp walks the ranks a word of 32 at a time, so the chain of dependent
+// steps is a few per word and not one per rank. Lane w owns word w of the
+// suppressed set, so words <= 32 and K <= 1024. For word w:
+// - The owner's word is broadcast; the ranks of the word that are above and
+//   not suppressed from earlier words are its candidates.
+// - Lane b holds the diagonal word of rank 32w + b (whom b suppresses within
+//   this word); a butterfly transpose of the 32 x 32 bits over the lanes
+//   tells lane b who suppresses b.
+// - The kept set is the one set K with "b in K iff b is a candidate and no
+//   rank of K suppresses b". It is found by iterating that rule from K = all
+//   candidates, one ballot a round: after n rounds every rank whose chain of
+//   suppressors is shorter than n is right, and a round that changes nothing
+//   ends it. Two to four rounds in practice, 33 at most.
+// - The rows of the kept ranks are ORed into the suppressed set. The lanes
+//   split into 32 / wpad groups (wpad: words rounded up to 8, 16 or 32); a
+//   lane ORs word lane % wpad of every kept rank of its group, all loads in
+//   flight together, and a butterfly of shuffles joins the groups.
+// A word with no candidate costs two shuffles.
 #pragma once
 
 #include <cstdint>
@@ -22,22 +34,49 @@ __device__ __forceinline__ void warp_greedy_suppress(
     uint32_t* __restrict__ keep, int words) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
+  const int wpad = words <= 8 ? 8 : words <= 16 ? 16 : 32;
+  const int groups = 32 / wpad;
+  const int my_word = lane & (wpad - 1);
+  const int my_group = lane / wpad;
   const uint32_t my_above = lane < words ? above[lane] : 0u;
-  int last = my_above ? lane * 32 + 31 - __clz(my_above) : -1;
-  for (int off = 16; off > 0; off >>= 1) {
-    last = max(last, __shfl_xor_sync(full, last, off));
-  }
   uint32_t suppressed = 0u;
-  uint32_t row = (last >= 0 && lane < words) ? mask[lane] : 0u;
-  for (int i = 0; i <= last; ++i) {
-    const uint32_t next =
-        (i < last && lane < words) ? mask[(i + 1) * words + lane] : 0u;
-    const int w = i >> 5;
-    const uint32_t bit = 1u << (i & 31);
-    const uint32_t sup_w = __shfl_sync(full, suppressed, w);
-    const uint32_t above_w = __shfl_sync(full, my_above, w);
-    if ((above_w & bit) && !(sup_w & bit)) suppressed |= row;
-    row = next;
+  for (int w = 0; w < words; ++w) {
+    const uint32_t aw = __shfl_sync(full, my_above, w);
+    const uint32_t cand = aw & ~__shfl_sync(full, suppressed, w);
+    if (cand == 0u) continue;  // the same in every lane
+    const int base = w * 32;
+    const bool mine = (cand >> lane) & 1u;
+    uint32_t kept = cand;
+    if (cand & (cand - 1u)) {  // two candidates or more
+      const uint32_t diag = mine ? mask[(base + lane) * words + w] & cand : 0u;
+      // transpose the 32 x 32 bits over the lanes, five butterfly stages:
+      // by = the candidates that suppress this lane's rank
+      uint32_t by = diag;
+      uint32_t m = 0x0000ffffu;
+#pragma unroll
+      for (int j = 16; j != 0; j >>= 1, m ^= m << j) {
+        const uint32_t other = __shfl_xor_sync(full, by, j);
+        by = (lane & j) ? (by & ~m) | ((other >> j) & m) : (by & m) | ((other << j) & ~m);
+      }
+      uint32_t prev;
+      do {
+        prev = kept;
+        kept = __ballot_sync(full, mine && (by & prev) == 0u);
+      } while (kept != prev);
+    }
+    uint32_t rows = 0u;
+    if (my_word < words) {
+#pragma unroll 8
+      for (int b = my_group; b < 32; b += groups) {
+        // no branch, so that the loads go out together; a rank not kept
+        // reads row 0 for nothing (its own row may lie past K)
+        const bool on = (kept >> b) & 1u;
+        const uint32_t row = mask[on ? (base + b) * words + my_word : my_word];
+        rows |= on ? row : 0u;
+      }
+    }
+    for (int off = wpad; off < 32; off <<= 1) rows |= __shfl_xor_sync(full, rows, off);
+    suppressed |= rows;  // lanes past `words` gather words nobody reads
   }
   if (lane < words) keep[lane] = my_above & ~suppressed;
 }

@@ -28,7 +28,7 @@ constexpr int kThreads = 1024;
 constexpr int kMaxK = 1024;
 constexpr int kUnroll = 8;
 
-__global__ void __launch_bounds__(kThreads) greedy_nms_kernel(
+__global__ void __launch_bounds__(kThreads, 1) greedy_nms_kernel(
     const float* __restrict__ overlap, const uint8_t* __restrict__ above,
     uint8_t* __restrict__ keep, int k, float thresh) {
   extern __shared__ uint32_t smem[];

@@ -13,10 +13,18 @@ are not carried over: one kernel serves every B.
 
 Bound on the H100: at B=8, M=16, S=112 on 640x640 frames the kernel writes
 19.3 MB of f32 crops and reads at most 9.8 MB of uint8 frames, about 8.7 us
-at 3.35 TB/s. Design: one thread per output pixel of one face gathers its
-4 taps straight from the uint8 frames (no f32 copy of the frame batch) and
-writes its 3 channels; coordinates use non-contracted arithmetic so floor()
-ties land where the plain version puts them.
+at 3.35 TB/s. Design: a block per 16 x 16 tile of one face's crop, a warp
+per 16 x 8 pixels, so a warp's taps fall in a compact patch of the frame
+whatever the face's rotation; 16 lanes lie along a row of the tile, so one
+load of the warp reads neighbouring source pixels, and a thread takes 4
+pixels of its column. A tap row (6 bytes) is read as two or three aligned
+32-bit words straight from the uint8 frames (no f32 copy of the frame
+batch). The crops leave through shared memory as 16-byte stores, consecutive
+lanes on consecutive addresses. Coordinates use non-contracted arithmetic so
+floor() ties land where the plain version puts them. Measured on an NVIDIA
+H100 80GB HBM3 at 700 W (``chip_smoke.py``, the shapes above, 16 faces a
+frame of 45 to 560 px turned up to 40 degrees): 15.2 us, against 38.3 us for
+``F.grid_sample`` on f32 frames (a yardstick the port never calls).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. ``LAUNCHES`` counts kernel launches.
@@ -86,6 +94,8 @@ def warp_crops_kernel(frames: torch.Tensor, inv: torch.Tensor, out_size: int = 1
         raise ValueError(f"inverse matrices {tuple(inv.shape)} do not fit frames {tuple(frames.shape)}")
     if h < 2 or w < 2:
         raise ValueError(f"frames {h}x{w} are too small to sample")
+    if h * w * 3 >= 2**31 - 16:
+        raise ValueError(f"frames {h}x{w}: the kernel indexes a frame's bytes in 32 bits")
     m = inv.shape[1]
     frames = frames.contiguous()
     inv = inv.to(torch.float32).contiguous()

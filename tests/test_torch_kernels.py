@@ -15,6 +15,7 @@ from frp_tpu.ops.nms_pallas import greedy_suppress as j_greedy
 
 from frp_tpu_torch.ops import align_cuda, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.align import invert_similarity
+from frp_tpu_torch.testing.payloads import crowd_payload
 
 
 def _random_head(rng, b, a):
@@ -108,3 +109,45 @@ def test_warp_plain_matches_exact_warp():
     inv = invert_similarity(torch.from_numpy(mats))
     got = align_cuda.warp_crops(torch.from_numpy(frames), inv, 32)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed,n_above", [(0, 24), (1, 1), (2, 63)])
+def test_fused_head_ignores_overlaps_of_candidates_below_threshold(seed, n_above):
+    """The greedy pass ORs in row i only when rank i is above the score
+    threshold, and keep = above & ~suppressed (frp_tpu/ops/nms.py, the loop of
+    nms_padded_batched): so the overlap of a pair matters only when both of
+    its candidates are above. The CUDA head builds no other bit of its mask.
+    Moving every box below the threshold onto the boxes above it changes
+    those overlaps from mostly 0 to mostly > 1 and must change nothing."""
+    rng = np.random.default_rng(seed)
+    k, m = 64, 8
+    payload = crowd_payload(rng, 3, k, n_above)
+    moved = payload.copy()
+    # each row below takes the prior and the deltas of a row above: its box
+    # then coincides with that box (overlap far above 1 with it and its crowd)
+    src = rng.integers(0, n_above, (3, k - n_above))
+    for f in range(3):
+        moved[f, n_above:, :18] = payload[f, src[f], :18]
+    args = (m, 0.5, 0.4, 0.5, 640.0)
+    got = detection_cuda.fused_head_plain(torch.from_numpy(payload), *args)
+    got_moved = detection_cuda.fused_head_plain(torch.from_numpy(moved), *args)
+    np.testing.assert_array_equal(got.numpy(), got_moved.numpy())
+    assert got[..., 15].sum() >= 3  # something is kept in every frame
+
+    # the same on the JAX reference, from the boxes the port decodes
+    from frp_tpu.ops.nms import nms_padded_batched as j_nms
+    from frp_tpu_torch.ops.decode import decode_boxes, decode_landmarks
+
+    def reference(p):
+        t = torch.from_numpy(p)
+        boxes = decode_boxes(t[..., 0:4], t[..., 14:18], 640.0).numpy()
+        ldm = decode_landmarks(t[..., 4:14], t[..., 14:18], 640.0).numpy()
+        return j_nms(jnp.asarray(boxes), jnp.asarray(p[..., 18]), jnp.asarray(ldm),
+                     pre_topk=k, max_out=m, conf_thresh=0.5, iou_thresh=0.4,
+                     iom_thresh=0.5, use_pallas=False)
+
+    want, want_moved = reference(payload), reference(moved)
+    for key in ("valid", "count", "boxes", "scores"):
+        np.testing.assert_array_equal(np.asarray(want[key]), np.asarray(want_moved[key]), err_msg=key)
+    np.testing.assert_array_equal(got[..., 15].numpy() > 0.5, np.asarray(want["valid"]))
+    np.testing.assert_allclose(got[..., 0:4].numpy(), np.asarray(want["boxes"]), rtol=1e-4, atol=1e-3)

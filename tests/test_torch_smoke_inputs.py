@@ -1,0 +1,58 @@
+"""PyTorch port: the inputs that chip_smoke.py builds for its kernel checks
+are what its docstrings say, checked here on the CPU (the checks themselves
+need the card)."""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from frp_tpu_torch.ops import align_cuda
+from frp_tpu_torch.ops.decode import decode_boxes
+from frp_tpu_torch.ops.nms import overlap_matrix
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("crowd,above,least_share", [(False, 64, 0.0), (True, 256, 0.3)])
+def test_head_payload_is_sorted_and_has_its_share_above(smoke, crowd, above, least_share):
+    payload = smoke.head_payload(torch.device("cpu"), crowd)
+    assert payload.shape == (8, 256, 19) and payload.dtype == torch.float32
+    score = payload[..., 18]
+    assert bool((score[:, :-1] >= score[:, 1:]).all())  # rows sorted by score
+    assert ((score >= 0.5).sum(1) == above).all()
+    boxes = decode_boxes(payload[..., 0:4], payload[..., 14:18], 640.0)
+    meet = torch.triu(overlap_matrix(boxes, 0.4, 0.5) > 0, 1)
+    assert float(meet.sum()) / (8 * 256 * 255 / 2) >= least_share
+
+
+def test_face_matrices_put_the_centre_on_the_crop_centre(smoke):
+    rng = np.random.default_rng(0)
+    th, sc = rng.uniform(-0.7, 0.7, (2, 3)), rng.uniform(0.2, 2.5, (2, 3))
+    c = rng.uniform(0, 640, (2, 3, 2))
+    mats = smoke.face_matrices(th, sc, c, 112)
+    assert mats.shape == (2, 3, 2, 3) and mats.dtype == np.float32
+    mapped = np.einsum("bmij,bmj->bmi", mats[..., :2], c) + mats[..., 2]
+    np.testing.assert_allclose(mapped, 56.0, atol=1e-3)
+    np.testing.assert_allclose(np.hypot(mats[..., 0, 0], mats[..., 1, 0]), sc, rtol=1e-5)
+
+
+def test_warp_faces_sample_inside_and_past_the_frame(smoke):
+    inv = smoke.warp_faces(torch.device("cpu"), 2, 96, 128, m=16, s=32)
+    assert inv.shape == (2, 16, 2, 3)
+    frames = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 96, 128, 3), dtype=np.uint8))
+    crops = align_cuda.warp_crops(frames, inv, 32)
+    assert crops.shape == (2, 16, 32, 32, 3) and bool(torch.isfinite(crops).all())
+    # faces 0 to 3 are centred on a border: half of each crop is the clamped edge
+    centre = inv[:, :4, :, :2] @ torch.tensor([16.0, 16.0]) + inv[:, :4, :, 2]
+    assert bool((centre[:, 0, 0].abs() < 1e-3).all()) and bool(((centre[:, 1, 0] - 127).abs() < 1e-3).all())
