@@ -15,7 +15,11 @@ Phases, each printed on its own lines, in order:
             The detection head is held and timed on two inputs: 64 of 256
             candidates above the score threshold, and all 256 above in a
             crowd of overlapping boxes. The warp is also held on faces far
-            larger than the frame.
+            larger than the frame. The greedy kernel is held and timed at
+            K=256, 512 and 1024 with 60 % of the candidates above, and at
+            K=512 with all above in a crowd and with 10 % above; a whole
+            nms_padded_batched call over the 16800 anchors is timed beside
+            the kernel's share of it.
 4. engine   the port's RecognitionEngine on cuda in the default profile (det
             640, 16 slots, top-256, bf16, spoof and quality on, MobileFaceNet,
             the shipped weights) over a DeltaEncoder stream of 8 rendered 640
@@ -31,7 +35,16 @@ Phases, each printed on its own lines, in order:
             1e-2 px. With the CPU tests against the JAX package, this chains
             the card's results back to the reference.
 
-Every count of kernel launches is set to 0 just before phases 4 and 5 and
+7. fused    build_pipeline, the single-program entry point, on cuda at the
+            default profile's width over the 8 rendered scenes as uint8 RGB
+            and the gallery of phase 4: a call launches the greedy kernel and
+            the warp once each and never the fused head; its result is held
+            against the staged engine's process_frames on the same frames
+            (valid, count, best_idx bit for bit, boxes within 1e-2 px,
+            embeddings and fake_prob within 2e-2); the enrolled face
+            matches; prints ms a call over 20 calls.
+
+Every count of kernel launches is set to 0 just before phases 4, 5 and 7 and
 read just after. Any failed check raises, so the run exits non-zero. The
 line before the last is one JSON object with every kernel's numbers; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -52,12 +65,13 @@ import torch.nn.functional as F
 
 from frp_tpu_torch.config import load_config
 from frp_tpu_torch.engine.batching import DeltaEncoder
-from frp_tpu_torch.engine.pipeline import RecognitionEngine
+from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline
 from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
-from frp_tpu_torch.ops.decode import decode_boxes
-from frp_tpu_torch.ops.nms import overlap_matrix
+from frp_tpu_torch.ops.decode import decode_boxes, decode_landmarks
+from frp_tpu_torch.ops.nms import nms_padded_batched, overlap_matrix
+from frp_tpu_torch.ops.topk import top_k
 from frp_tpu_torch.testing.payloads import crowd_payload
 from frp_tpu_torch.testing.synthetic import make_scene
 
@@ -183,6 +197,21 @@ def launches() -> dict[str, int]:
 HEAD_ARGS = (16, 0.5, 0.4, 0.5, 640.0)  # M, conf, iou, iom thresholds, det size
 
 
+def random_head(dev, b=FRAMES, det=640):
+    """Random head outputs (loc [B, A, 4], ldm [B, A, 10], scores [B, A]) over
+    the 16800 anchors of det 640, 64 confident anchors a frame, and the
+    anchors [A, 4]."""
+    rng = np.random.default_rng(SEED)
+    priors = torch.from_numpy(generate_anchors(det).copy()).to(dev)
+    a = priors.shape[0]
+    loc = rng.normal(0, 0.4, (b, a, 4)).astype(np.float32)
+    ldm = rng.normal(0, 0.4, (b, a, 10)).astype(np.float32)
+    scores = rng.uniform(0, 0.25, (b, a)).astype(np.float32)
+    for i in range(b):
+        scores[i, rng.choice(a, 64, replace=False)] = rng.uniform(0.5, 1.0, 64)
+    return (*(torch.from_numpy(x).to(dev) for x in (loc, ldm, scores)), priors)
+
+
 def head_payload(dev, crowd: bool, b=FRAMES, det=640, k=256) -> torch.Tensor:
     """Kernel 1's payload [B, K, 19] at B=8, K=256. The usual input: random
     head outputs over the 16800 anchors of det 640 with 64 confident anchors
@@ -192,15 +221,7 @@ def head_payload(dev, crowd: bool, b=FRAMES, det=640, k=256) -> torch.Tensor:
     if crowd:
         rng = np.random.default_rng(SEED + 7)
         return torch.from_numpy(crowd_payload(rng, b, k, n_above=k)).to(dev)
-    rng = np.random.default_rng(SEED)
-    priors = torch.from_numpy(generate_anchors(det).copy()).to(dev)
-    a = priors.shape[0]
-    loc = rng.normal(0, 0.4, (b, a, 4)).astype(np.float32)
-    ldm = rng.normal(0, 0.4, (b, a, 10)).astype(np.float32)
-    scores = rng.uniform(0, 0.25, (b, a)).astype(np.float32)
-    for i in range(b):
-        scores[i, rng.choice(a, 64, replace=False)] = rng.uniform(0.5, 1.0, 64)
-    loc, ldm, scores = (torch.from_numpy(x).to(dev) for x in (loc, ldm, scores))
+    loc, ldm, scores, priors = random_head(dev, b, det)
     return detection_cuda.build_payload(loc, ldm, scores, priors, k)
 
 
@@ -310,33 +331,85 @@ def check_warp_crops(dev, frames: torch.Tensor, m=16, s=112) -> dict:
     )
 
 
-def check_greedy_nms(dev, k: int, b=FRAMES) -> dict:
-    """Kernel 3 at B=8 on the effective overlap of K boxes 16 to 160 px wide
-    spread over a 640 frame, 60 % of them above the score threshold."""
+def greedy_input(dev, k: int, case: str = "smoke", b=FRAMES):
+    """Kernel 3's inputs at B=8: the effective overlap [B, K, K] and the above
+    mask [B, K]. "smoke": K boxes 16 to 160 px wide spread over a 640 frame,
+    60 % of them above the score threshold; "sparse": the same boxes, 10 %
+    above; "crowd": the decoded boxes of the detection head's crowd
+    (``testing/payloads.py``), all above."""
     rng = np.random.default_rng(SEED + k)
-    ctr = rng.uniform(0, 640, (b, k, 2))
-    wh = rng.uniform(16, 160, (b, k, 2))
-    boxes = torch.from_numpy(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32))
-    eff = overlap_matrix(boxes.to(dev), 0.4, 0.5)
-    above = torch.from_numpy(rng.random((b, k)) < 0.6).to(dev)
+    if case == "crowd":
+        pay = torch.from_numpy(crowd_payload(rng, b, k, n_above=k)).to(dev)
+        boxes = decode_boxes(pay[..., 0:4], pay[..., 14:18], 640.0)
+        above = torch.ones((b, k), dtype=torch.bool, device=dev)
+    else:
+        ctr = rng.uniform(0, 640, (b, k, 2))
+        wh = rng.uniform(16, 160, (b, k, 2))
+        boxes = torch.from_numpy(
+            np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)).to(dev)
+        above = torch.from_numpy(rng.random((b, k)) < (0.6 if case == "smoke" else 0.1)).to(dev)
+    return overlap_matrix(boxes, 0.4, 0.5), above
+
+
+def check_greedy_nms(dev, k: int, case: str = "smoke") -> dict:
+    """Kernel 3 at B=8 on one of ``greedy_input``'s inputs: the keep mask bit
+    for bit, then the times."""
+    eff, above = greedy_input(dev, k, case)
+    b = eff.shape[0]
     got = nms_cuda.greedy_suppress_kernel(eff, above, 1.0)
     want = nms_cuda.greedy_suppress_plain(eff, above, 1.0)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError(f"greedy_nms K={k}: keep mask differs from the plain version")
+        raise AssertionError(f"greedy_nms K={k} {case}: keep mask differs from the plain version")
     # the keep mask depends only on the overlaps of the pairs j > i: those
-    # f32 values, the above flags and the keep flags, one compare a pair
+    # f32 values, the above flags and the keep flags, one compare a pair.
+    # This is the function's nominal work: the kernel skips the rows and
+    # words the greedy pass cannot read, so a share of this bound is no
+    # efficiency
     pairs = b * k * (k - 1) / 2
     bms, by = bound(pairs * 4 + above.numel() + got.numel(), pairs)
     return dict(
-        shape=f"B={b} K={k}", max_abs_err=max_err(got, want),
+        shape=f"B={b} K={k}, {100 * float(above.float().mean()):.0f} % above ({case}), "
+              f"{int(got.sum()) // b} kept a frame",
+        max_abs_err=max_err(got, want),
         ms=device_ms(lambda: nms_cuda.greedy_suppress_kernel(eff, above, 1.0)),
-        plain_ms=device_ms(lambda: nms_cuda.greedy_suppress_plain(eff, above, 1.0), 5, True),
+        plain_ms=device_ms(lambda: nms_cuda.greedy_suppress_plain(eff, above, 1.0), 3, True),
         bound_ms=bms, bound_by=by, library_ms=None,
     )
 
 
-# --- phases 4 to 6: the engine -----------------------------------------------
+def nms_call_share(dev, k: int) -> dict:
+    """What the greedy kernel is of a whole ``nms_padded_batched`` call on
+    [8, 16800] decoded anchors (``random_head``) at pre_topk=k: the call's
+    device time (top-k, gathers, ``overlap_matrix``, the kernel, the slot
+    selection), the kernel's alone on the call's own overlap, and the call's
+    time on the host's clock, which is the host's launches."""
+    loc, ldm, scores, priors = random_head(dev)
+    boxes = decode_boxes(loc, priors, 640.0)
+    ldm = decode_landmarks(ldm, priors, 640.0)
+    top_scores, top_idx = top_k(scores, k)
+    eff = overlap_matrix(torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4)), 0.4, 0.5)
+    above = top_scores >= 0.5
+
+    def call():
+        return nms_padded_batched(boxes, scores, ldm, pre_topk=k, max_out=16)
+
+    # some twenty small ops a call: ten calls are what the host queues while
+    # device_ms holds the stream
+    out = dict(
+        call_ms=device_ms(call, 10),
+        kernel_ms=device_ms(lambda: nms_cuda.greedy_suppress_kernel(eff, above, 1.0)),
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    return out
+
+
+# --- phases 4 to 7: the engine -----------------------------------------------
 
 def stage_ms(events: list) -> dict[str, float]:
     """Median device ms of each stage over the ticks of a stage-event list
@@ -457,6 +530,59 @@ def run_parity(dev, scenes: np.ndarray, profile: dict) -> dict:
     return dict(faces=int(v.sum()), max_abs_err=errs)
 
 
+def run_fused(dev, scenes: np.ndarray, profile: dict, eng: RecognitionEngine,
+              enrolled_frame: int, calls: int = 20) -> dict:
+    """Phase 7: build_pipeline over the scenes as uint8 RGB against the staged
+    engine `eng` (its weights, priors, distance scale and gallery, in which
+    phase 4 enrolled a face of scene `enrolled_frame`)."""
+    cfg = load_config(**profile)
+    pipeline = build_pipeline(
+        device=dev, det_size=cfg.det_size, max_faces=cfg.max_faces_per_frame,
+        pre_nms_topk=cfg.pre_nms_topk, conf_thresh=cfg.det_conf_threshold,
+        nms_thresh=cfg.det_nms_threshold, iom_thresh=cfg.det_nms_iom_threshold,
+        tolerance=cfg.face_tolerance, compute_dtype=cfg.compute_dtype,
+        distance_scale=eng.distance_scale)
+    want = eng.process_frames(scenes)
+    gallery, gallery_valid, names = eng.gallery.device_view()
+    frames = torch.from_numpy(scenes).to(dev)
+    timed = dev.type == "cuda"
+
+    def call():
+        return pipeline(eng.params, frames, gallery, gallery_valid, eng._priors)
+
+    reset_launches()
+    got = {k: v.cpu().numpy() for k, v in call().items()}
+    first = launches()
+    if timed and first != {"detection_head": 0, "warp_crops": 1, "greedy_nms": 1}:
+        raise AssertionError(f"build_pipeline launches {first} a call")
+    for key in ("valid", "count", "best_idx"):
+        if not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"build_pipeline and the staged engine differ in {key}: "
+                                 f"{got[key].tolist()} against {want[key].tolist()}")
+    v = want["valid"]
+    if not v.any():
+        raise AssertionError("build_pipeline found no face")
+    errs = {key: float(np.abs(got[key][v] - want[key][v]).max())
+            for key in ("boxes", "embeddings", "fake_prob", "quality", "best_distance")}
+    for key, tol in (("boxes", 1e-2), ("embeddings", 2e-2), ("fake_prob", 2e-2)):
+        if not errs[key] <= tol:
+            raise AssertionError(f"build_pipeline and the staged engine differ in {key} by {errs[key]}")
+    j, slot = enrolled_frame, names.index("enrolled")
+    hit = got["valid"][j] & got["is_match"][j] & (got["best_idx"][j] == slot)
+    if not hit.any():
+        raise AssertionError(f"the enrolled face did not match in frame {j} of build_pipeline")
+    if timed:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    if timed:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    return dict(launches=launches(), calls=calls + 1, faces=int(v.sum()), max_abs_err=errs,
+                ms_per_call=ms, enrolled_distance=float(got["best_distance"][j][hit].min()))
+
+
 # --- main --------------------------------------------------------------------
 
 def gpu_name_and_limit() -> str:
@@ -492,8 +618,14 @@ def main() -> int:
         "greedy_nms": check_greedy_nms(dev, 512),
     }
     crowd = check_detection_head(dev, crowd=True)
-    k256 = check_greedy_nms(dev, 256)
-    for name, c in [*checks.items(), ("detection_head", crowd), ("greedy_nms", k256)]:
+    greedy = {
+        "ms_k256": check_greedy_nms(dev, 256),
+        "ms_k1024": check_greedy_nms(dev, 1024),
+        "ms_all_above": check_greedy_nms(dev, 512, "crowd"),
+        "ms_sparse": check_greedy_nms(dev, 512, "sparse"),
+    }
+    for name, c in [*checks.items(), ("detection_head", crowd),
+                    *(("greedy_nms", c) for c in greedy.values())]:
         say("kernels", f"{name} {c['shape']}: equal to plain (max abs err {c['max_abs_err']:.3g}); "
             f"kernel {c['ms'] * 1e3:.1f} us, bound {c['bound_ms'] * 1e3:.3f} us by {c['bound_by']}, "
             f"plain {c['plain_ms'] * 1e3:.1f} us"
@@ -502,6 +634,13 @@ def main() -> int:
             + (f"; faces far larger than the frame: max abs err "
                f"{c['large_face_max_abs_err']:.3g}" if "large_face_max_abs_err" in c else ""))
     say("kernels", "all three kernels equal their plain versions")
+    shares = {k: nms_call_share(dev, k) for k in (256, 512)}
+    for k, c in shares.items():
+        say("kernels", f"nms_padded_batched [8, 16800] -> K={k}, 64 above a frame: "
+            f"{c['call_ms'] * 1e3:.1f} us a call (top-k, gathers, overlap_matrix, kernel, slot "
+            f"selection), of which the greedy kernel {c['kernel_ms'] * 1e3:.1f} us "
+            f"({100 * c['kernel_ms'] / c['call_ms']:.0f} %); {c['wall_ms'] * 1e3:.0f} us a call "
+            "on the host's clock")
     one = torch.zeros(1, device=dev)
     say("kernels", "for scale, a one-element add timed the same way (a launch and the "
         f"events around it): {device_ms(lambda: one.add_(1.0)) * 1e3:.1f} us")
@@ -525,7 +664,16 @@ def main() -> int:
         "equal on cuda and cpu; max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in par["max_abs_err"].items()))
 
-    counts = {**scan["launches"], "greedy_nms": nms["launches"]["greedy_nms"]}
+    fused = run_fused(dev, scenes, PROFILE, scan["engine"], scan["enrolled_frame"])
+    say("fused", f"build_pipeline, {FRAMES} x 640 uint8 RGB, {fused['calls']} calls: launches "
+        f"{fused['launches']} (one greedy_nms and one warp_crops a call, no detection_head)")
+    say("fused", f"{fused['faces']} faces: valid, count, best_idx equal to the staged engine's; "
+        "max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in fused["max_abs_err"].items())
+        + f"; enrolled face matched at distance {fused['enrolled_distance']:.4f}")
+    say("fused", f"{fused['ms_per_call']:.2f} ms a call (host clock, synchronized) on {smi}")
+
+    counts = {name: scan["launches"][name] + nms["launches"][name] + fused["launches"][name]
+              for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         c = checks[name]
@@ -538,6 +686,9 @@ def main() -> int:
     # kernel 1 on its second input, all 256 candidates above in a crowd
     rows[0].update(ms_all_above=crowd["ms"], plain_ms_all_above=crowd["plain_ms"],
                    max_abs_err_all_above=crowd["max_abs_err"])
+    # kernel 3 at K=256 and K=1024, all above in a crowd, and 10 % above
+    rows[2].update({key: c["ms"] for key, c in greedy.items()})
+    rows[2].update({f"nms_call_ms_k{k}": c["call_ms"] for k, c in shares.items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

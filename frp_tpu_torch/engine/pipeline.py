@@ -1,7 +1,10 @@
 """The recognition pipeline on PyTorch (port of ``frp_tpu/engine/pipeline.py``,
 default throughput profile): frames -> detections -> aligned crops ->
 embeddings (+ spoof) -> gallery matches, as chained stages whose
-intermediates stay on the device.
+intermediates stay on the device. Two entry points: ``RecognitionEngine``
+(the staged scan below) and ``build_pipeline`` (the same stages as one
+function of (params, frames, gallery, gallery_valid, priors), whose head is
+decode + ``nms_padded_batched``, so every call launches kernel 3).
 
     I420 payload (DeltaEncoder)    host
       └ delta_ingest: block scatter onto the resident batch, BT.601, pad
@@ -12,13 +15,16 @@ intermediates stay on the device.
       └ match_pack: gallery match, packed [B, M, 22]
     fetch: one device->host copy, unpacked on the host
 
-``pre_nms_topk`` > 256 routes detect through decode + ``nms_padded_batched``,
-whose greedy pass is kernel 3 (``ops/nms_cuda.py``). Everything is
-shape-static: M = max_faces slots per frame with validity masks.
+``pre_nms_topk`` > 256, and every call of ``build_pipeline``, routes detect
+through decode + ``nms_padded_batched``, whose greedy pass is kernel 3
+(``ops/nms_cuda.py``). Everything is shape-static: M = max_faces slots per
+frame with validity masks.
 
 Not ported yet (ROADMAP): the accuracy profile (iresnet, flip-TTA, embed
 compaction rungs), ``put_payload``, ``fetch_many``,
-``precompile_delta_rungs``, ONNX/.pth import and mesh sharding.
+``precompile_delta_rungs``, ONNX/.pth import, mesh sharding, and
+``build_pipeline``'s ``with_spoof=False``, ``with_quality=False`` and
+``spoof_size``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from frp_tpu_torch.ops.align import (
     warp_crops_batched,
 )
 from frp_tpu_torch.ops.anchors import generate_anchors
+from frp_tpu_torch.ops.decode import decode_boxes, decode_landmarks
 from frp_tpu_torch.ops.detection_cuda import fused_detection_head
 from frp_tpu_torch.ops.image import (
     normalize_face,
@@ -53,6 +60,7 @@ from frp_tpu_torch.ops.image import (
     yuv420_to_rgb,
 )
 from frp_tpu_torch.ops.matching import gallery_match
+from frp_tpu_torch.ops.nms import nms_padded_batched
 from frp_tpu_torch.ops.quality import assess_quality_batch
 from frp_tpu_torch.utils.fingerprint import weights_fingerprint
 from frp_tpu_torch.utils.logger import get_logger
@@ -84,10 +92,14 @@ def build_stages(
     iom_thresh: float = 0.5,
     top_k: int = 5,
     compute_dtype: str = "bfloat16",
+    fused_head: bool = True,
 ):
     """The pipeline as chained stage functions (the JAX package's
     ``build_stages`` without its accuracy-profile options). Constants live on
-    ``device`` once, so no stage copies host data to the card."""
+    ``device`` once, so no stage copies host data to the card. The detect
+    stage's head is the fused detection head (kernel 1), as the JAX stages'
+    on a TPU; ``fused_head=False`` takes decode + ``nms_padded_batched``
+    (kernel 3), the head of the JAX ``build_pipeline``."""
     cdtype = getattr(torch, compute_dtype)
     template = torch.from_numpy(ARCFACE_TEMPLATE_112.copy()).to(device)
     ident = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=torch.float32, device=device)
@@ -100,15 +112,18 @@ def build_stages(
         else:
             x, scale = preprocess_frames(frames, det_size, compute_dtype)
         det = retinaface_forward(params, x)
-        dets = fused_detection_head(
-            det["loc"], det["ldm"], det["score"], priors,
-            pre_topk=pre_nms_topk,
-            max_out=max_faces,
-            conf_thresh=conf_thresh,
-            iou_thresh=nms_thresh,
-            iom_thresh=iom_thresh,
-            image_size=float(det_size),
-        )
+        head = dict(pre_topk=pre_nms_topk, max_out=max_faces, conf_thresh=conf_thresh,
+                    iou_thresh=nms_thresh, iom_thresh=iom_thresh)
+        if fused_head:
+            dets = fused_detection_head(
+                det["loc"], det["ldm"], det["score"], priors,
+                image_size=float(det_size), **head)
+        else:
+            dets = nms_padded_batched(
+                decode_boxes(det["loc"], priors, float(det_size)),
+                det["score"],
+                decode_landmarks(det["ldm"], priors, float(det_size)),
+                **head)
         sxy = scale[:, None, :]
         m = dets["valid"].shape[1]
         boxes = dets["boxes"] * torch.cat([sxy, sxy], dim=-1)
@@ -226,6 +241,63 @@ def build_stages(
         "delta_ingest": delta_ingest_stage,
         "match_pack": match_pack_stage,
     }
+
+
+def full_tree(dets, cropped, emb, matched) -> dict:
+    """The stages' outputs as one result dict: every per-face output, the
+    embeddings and the top-k included, the crops left out."""
+    return {
+        **dets,
+        **{k: v for k, v in cropped.items() if k != "crops"},
+        **{k: v for k, v in emb.items() if k != "embeddings_flat"},
+        **matched,
+    }
+
+
+def build_pipeline(
+    *,
+    device=None,
+    det_size: int = 640,
+    max_faces: int = 16,
+    pre_nms_topk: int = 256,
+    conf_thresh: float = 0.5,
+    nms_thresh: float = 0.4,
+    iom_thresh: float = 0.5,
+    tolerance: float = 0.6,
+    top_k: int = 5,
+    compute_dtype: str = "bfloat16",
+    distance_scale: float = 1.0,
+):
+    """The single-program pipeline (``frp_tpu/engine/pipeline.py::build_pipeline``):
+    returns ``pipeline(params, frames, gallery, gallery_valid, priors)`` ->
+    dict of boxes [B, M, 4], scores, landmarks [B, M, 10], valid, count [B],
+    embeddings [B, M, D], best_idx, best_distance, is_match, topk_idx,
+    topk_distance [B, M, top_k], fake_prob, quality, blur_score; all tensors
+    on ``device``, all knobs fixed here. ``params`` holds the converted
+    ``detector``, ``embedder`` and ``spoof`` trees, ``frames`` is [B, H, W, 3]
+    uint8 RGB, ``priors`` the anchors of ``det_size``.
+
+    It chains the stages of ``build_stages``; its head is decode +
+    ``nms_padded_batched``, never the fused head, as the reference's: on the
+    card a call launches kernel 3 and kernel 2 once each. Spoof and quality
+    are always on, as in ``build_stages``. ``device=None`` means the card and
+    raises without it."""
+    device = resolve_device(device)
+    stages = build_stages(
+        device=device, det_size=det_size, max_faces=max_faces, pre_nms_topk=pre_nms_topk,
+        conf_thresh=conf_thresh, nms_thresh=nms_thresh, iom_thresh=iom_thresh,
+        top_k=top_k, compute_dtype=compute_dtype, fused_head=False)
+
+    @torch.no_grad()
+    def pipeline(params, frames, gallery, gallery_valid, priors):
+        dets = stages["detect"](params["detector"], frames, priors)
+        cropped = stages["crop"](frames, dets)
+        emb = stages["embed"](params, cropped["crops"], dets["valid"], distance_scale)
+        matched = stages["match"](
+            emb["embeddings_flat"], dets["valid"], gallery, gallery_valid, float(tolerance))
+        return full_tree(dets, cropped, emb, matched)
+
+    return pipeline
 
 
 # column layout of the pack_stage output (see unpack_packed)
@@ -469,13 +541,7 @@ class RecognitionEngine:
         matched = self._stages["match"](
             emb["embeddings_flat"], dets["valid"], gal, gal_valid, float(tolerance))
         self._mark("match")
-        out = {
-            **dets,
-            **{k: v for k, v in cropped.items() if k != "crops"},
-            **{k: v for k, v in emb.items() if k != "embeddings_flat"},
-            **matched,
-        }
-        return out, gal_names
+        return full_tree(dets, cropped, emb, matched), gal_names
 
     def _record(self, b: int, count: np.ndarray, seconds: float) -> None:
         with self._lock:

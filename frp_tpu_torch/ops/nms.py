@@ -43,6 +43,11 @@ def overlap_matrix(
     return eff
 
 
+def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
+    """Dense pairwise IoU. boxes [K, 4] xyxy -> [K, K] float32."""
+    return overlap_matrix(boxes, 1.0, 0.0)
+
+
 def _select_slots(keep, top_scores, top_boxes, top_ldm, max_out: int, k: int):
     """Batched slot selection: [B, K] keep mask and rank-ordered candidates
     -> dict of [B, max_out] padded outputs. Kept candidates outrank the rest
@@ -102,3 +107,25 @@ def nms_padded_batched(
     above = top_scores >= conf_thresh
     keep = nms_cuda.greedy_suppress(eff, above, 1.0)
     return _select_slots(keep, top_scores, top_boxes, top_ldm, max_out, k)
+
+
+def nms_padded(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    landmarks: torch.Tensor,
+    *,
+    pre_topk: int = 256,
+    max_out: int = 16,
+    conf_thresh: float = 0.5,
+    iou_thresh: float = 0.4,
+    iom_thresh: float = 0.5,
+):
+    """Greedy NMS of one frame with fixed output slots: boxes [A, 4] xyxy,
+    scores [A], landmarks [A, 10] -> dict boxes [M, 4], scores [M],
+    landmarks [M, 10], valid [M] bool, count scalar int32. Padded slots have
+    score 0 and valid False. It is ``nms_padded_batched`` on a batch of one,
+    so on the card its greedy pass is one launch of the kernel with B=1."""
+    out = nms_padded_batched(
+        boxes[None], scores[None], landmarks[None], pre_topk=pre_topk, max_out=max_out,
+        conf_thresh=conf_thresh, iou_thresh=iou_thresh, iom_thresh=iom_thresh)
+    return {key: val[0] for key, val in out.items()}

@@ -13,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from frp_tpu_torch.config import load_config
+from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline
 from frp_tpu_torch.ops import align_cuda, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
-from frp_tpu_torch.ops.nms import overlap_matrix
+from frp_tpu_torch.ops.nms import nms_padded, nms_padded_batched, overlap_matrix
 from frp_tpu_torch.testing.payloads import crowd_payload
+from frp_tpu_torch.testing.synthetic import make_scene
 
 
 @pytest.fixture
@@ -97,19 +100,156 @@ def test_warp_kernel_matches_plain(cuda, h, w, s):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=1e-3)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [256, 512, 1024])
-def test_greedy_kernel_matches_plain(cuda, k):
-    rng = np.random.default_rng(k)
-    ctr = rng.uniform(0, 640, (4, k, 2))
-    wh = rng.uniform(16, 160, (4, k, 2))
+def _greedy_input(rng, b, k, case):
+    """Effective overlap [b, k, k] of k boxes 16 to 160 px wide spread over a
+    640 frame, and the above mask of one of five cases."""
+    ctr = rng.uniform(0, 640, (b, k, 2))
+    wh = rng.uniform(16, 160, (b, k, 2))
     boxes = torch.from_numpy(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32))
-    eff = overlap_matrix(boxes.to(cuda), 0.4, 0.5)
-    above = torch.from_numpy(rng.random((4, k)) < 0.6).to(cuda)
-    got = nms_cuda.greedy_suppress_kernel(eff, above, 1.0)
-    want = nms_cuda.greedy_suppress_plain(eff, above, 1.0)
+    eff = overlap_matrix(boxes, 0.4, 0.5)
+    above = {
+        "none": np.zeros((b, k), bool),
+        "all": np.ones((b, k), bool),
+        "prefix": np.arange(k)[None] < rng.integers(1, k + 1, (b, 1)),
+        "sparse": rng.random((b, k)) < 0.1,
+        "scattered": rng.random((b, k)) < 0.6,
+    }[case]
+    return eff, torch.from_numpy(above)
+
+
+def _hold_greedy(cuda, eff, above, want_from=None):
+    """The kernel on (eff, above) against the plain version, bit for bit;
+    `want_from` is the overlap the plain version reads, when it differs."""
+    got = nms_cuda.greedy_suppress_kernel(eff.to(cuda), above.to(cuda), 1.0)
     torch.cuda.synchronize()
-    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    want = nms_cuda.greedy_suppress_plain(eff if want_from is None else want_from, above, 1.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["none", "all", "prefix", "sparse", "scattered"])
+@pytest.mark.parametrize("k,b", [(1, 8), (31, 20), (32, 1), (33, 8), (200, 20), (256, 8),
+                                 (512, 1), (1000, 8), (1024, 20)])
+def test_greedy_kernel_matches_plain(cuda, k, b, case):
+    eff, above = _greedy_input(np.random.default_rng(k), b, k, case)
+    want = _hold_greedy(cuda, eff, above)
+    if case == "none":
+        assert not want.any()
+    if case == "all":
+        assert want[:, 0].all()  # rank 0 is always kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [200, 512, 1023, 1024])
+@pytest.mark.parametrize("junk", [float("nan"), 1e30])
+def test_greedy_kernel_ignores_what_the_pass_cannot_read(cuda, k, junk):
+    """NaN or 1e30 in every row and column of a candidate below the score
+    threshold and everywhere at or left of the diagonal: the keep mask is
+    that of the clean overlap."""
+    eff, above = _greedy_input(np.random.default_rng(k + 1), 8, k, "scattered")
+    both = above[:, :, None] & above[:, None, :]
+    right = torch.triu(torch.ones(k, k, dtype=torch.bool), 1)
+    dirty = torch.where(both & right, eff, torch.full_like(eff, junk))
+    _hold_greedy(cuda, dirty, above, want_from=eff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 256, 1000])
+@pytest.mark.parametrize("case", ["at_threshold", "chain", "rank0"])
+def test_greedy_kernel_edge_cases(cuda, k, case):
+    eff = torch.zeros((2, k, k))
+    above = torch.ones((2, k), dtype=torch.bool)
+    if case == "at_threshold":  # exactly 1.0 does not suppress; the next float does
+        eff[0] = 1.0
+        eff[1] = float(np.nextafter(np.float32(1.0), np.float32(2.0)))
+    elif case == "chain":  # rank i suppresses only i + 1: every other rank is kept,
+        # the fixed point's longest chain over each whole word
+        i = torch.arange(k - 1)
+        eff[:, i, i + 1] = 2.0
+    else:  # rank 0 suppresses everything
+        eff[:, 0, 1:] = 2.0
+    want = _hold_greedy(cuda, eff, above)
+    if case == "at_threshold":
+        assert want[0].all() and int(want[1].sum()) == 1
+    elif case == "chain":
+        assert want[0].tolist() == [i % 2 == 0 for i in range(k)]
+    else:
+        assert int(want[0].sum()) == 1 and bool(want[0, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 512])
+def test_greedy_kernel_takes_an_overlap_off_a_16_byte_boundary(cuda, k):
+    """A view that starts 4 bytes into its storage: the 4-byte loads."""
+    eff, above = _greedy_input(np.random.default_rng(k + 2), 3, k, "scattered")
+    flat = torch.empty(eff.numel() + 1, device=cuda)
+    view = flat[1:].view(eff.shape)
+    view.copy_(eff)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    got = nms_cuda.greedy_suppress_kernel(view, above.to(cuda), 1.0)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), nms_cuda.greedy_suppress_plain(eff, above, 1.0).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre_topk", [64, 256, 512])
+def test_nms_padded_batched_on_the_card_matches_cpu(cuda, pre_topk):
+    """The port's batched NMS and its single-frame form on the card (kernel
+    3) against the CPU (the plain greedy pass), at f32, with score ties."""
+    rng = np.random.default_rng(pre_topk)
+    a = 2000
+    ctr = rng.uniform(0, 640, (3, a, 2))
+    wh = rng.uniform(16, 160, (3, a, 2))
+    boxes = torch.from_numpy(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32))
+    scores = torch.from_numpy(np.round(rng.uniform(0, 1, (3, a)), 2).astype(np.float32))
+    ldm = torch.from_numpy(rng.uniform(0, 640, (3, a, 10)).astype(np.float32))
+    kw = dict(pre_topk=pre_topk, max_out=16)
+    launches = nms_cuda.LAUNCHES
+    got = nms_padded_batched(boxes.to(cuda), scores.to(cuda), ldm.to(cuda), **kw)
+    one = nms_padded(boxes[0].to(cuda), scores[0].to(cuda), ldm[0].to(cuda), **kw)
+    assert nms_cuda.LAUNCHES == launches + 2
+    want = nms_padded_batched(boxes, scores, ldm, **kw)
+    for key in want:
+        # the same f32 ops on the same values: the card's divisions round as the CPU's
+        np.testing.assert_array_equal(got[key].cpu().numpy(), want[key].numpy(), err_msg=key)
+        np.testing.assert_array_equal(one[key].cpu().numpy(), want[key][0].numpy(), err_msg=key)
+
+
+@pytest.mark.cuda
+def test_build_pipeline_on_the_card_matches_cpu(cuda):
+    """The single-program pipeline at det 128, f32 (TF32 off): card against
+    CPU, and the launches of a call."""
+    kw = dict(det_size=128, max_faces=4, pre_nms_topk=64, conf_thresh=0.3,
+              compute_dtype="float32")
+    cfg = load_config(det_size=128, max_faces_per_frame=4, pre_nms_topk=64,
+                      det_conf_threshold=0.3, compute_dtype="float32")
+    frames = np.stack([make_scene(128, np.random.default_rng(s), max_faces=1, portrait=True)[0]
+                       for s in (3, 5, 8)])
+    gallery = np.random.default_rng(0).normal(size=(8, 128)).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        eng = RecognitionEngine(cfg, device=dev)  # the shipped weights, converted for dev
+        params, priors = eng.params, eng._priors
+        counts = (nms_cuda.LAUNCHES, align_cuda.LAUNCHES, detection_cuda.LAUNCHES)
+        with torch.no_grad():
+            out = build_pipeline(device=dev, **kw)(
+                params, torch.from_numpy(frames).to(dev), torch.from_numpy(gallery).to(dev),
+                torch.ones(8, dtype=torch.bool, device=dev), priors)
+        if dev != "cpu":
+            assert (nms_cuda.LAUNCHES, align_cuda.LAUNCHES, detection_cuda.LAUNCHES) == (
+                counts[0] + 1, counts[1] + 1, counts[2])
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    want, got = outs
+    assert want["count"].sum() >= 3
+    for key in ("valid", "count", "best_idx", "is_match"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    v = want["valid"]
+    # cuDNN and the CPU's convolutions sum in different orders: 1e-2 px on the
+    # boxes, 1e-3 on unit-scale outputs
+    for key, atol in (("boxes", 1e-2), ("landmarks", 1e-2), ("embeddings", 1e-3),
+                      ("fake_prob", 1e-3), ("quality", 1e-3), ("best_distance", 1e-3)):
+        np.testing.assert_allclose(got[key][v], want[key][v], rtol=0, atol=atol, err_msg=key)
 
 
 @pytest.mark.cuda

@@ -151,3 +151,30 @@ def test_fused_head_ignores_overlaps_of_candidates_below_threshold(seed, n_above
         np.testing.assert_array_equal(np.asarray(want[key]), np.asarray(want_moved[key]), err_msg=key)
     np.testing.assert_array_equal(got[..., 15].numpy() > 0.5, np.asarray(want["valid"]))
     np.testing.assert_allclose(got[..., 0:4].numpy(), np.asarray(want["boxes"]), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("junk", [0.0, 2.0, 1e30])
+@pytest.mark.parametrize("k,p_above", [(64, 0.6), (200, 0.1)])
+def test_greedy_suppress_ignores_what_the_pass_cannot_read(k, p_above, junk):
+    """The greedy pass reads eff[i, j] only for j > i with ranks i and j both
+    above the score threshold: rank i suppresses only when it is above, only
+    lower ranks, and keep = above & ~suppressed. The CUDA kernel loads no other
+    entry. Overwriting every other entry (rows and columns of candidates
+    below, the diagonal and everything left of it) with 0, with a value above
+    the threshold or with 1e30 must leave the keep mask as it is, in the
+    port's plain version and in the JAX package's Pallas kernel."""
+    rng = np.random.default_rng(k)
+    eff = rng.uniform(0, 2.0, (3, k, k)).astype(np.float32)
+    above = rng.random((3, k)) < p_above
+    both = above[:, :, None] & above[:, None, :]
+    right = np.triu(np.ones((k, k), bool), 1)
+    dirty = np.where(both & right, eff, np.float32(junk))
+    assert (dirty != eff).mean() > 0.5
+    got = nms_cuda.greedy_suppress(torch.from_numpy(eff), torch.from_numpy(above), 1.0).numpy()
+    got_dirty = nms_cuda.greedy_suppress(torch.from_numpy(dirty), torch.from_numpy(above), 1.0).numpy()
+    np.testing.assert_array_equal(got_dirty, got)
+    want = np.asarray(j_greedy(jnp.asarray(eff), jnp.asarray(above), 1.0))
+    want_dirty = np.asarray(j_greedy(jnp.asarray(dirty), jnp.asarray(above), 1.0))
+    np.testing.assert_array_equal(want_dirty, want)
+    np.testing.assert_array_equal(got, want)
+    assert got.any() and (got != above).any()  # something is kept, something suppressed

@@ -56,3 +56,18 @@ def test_warp_faces_sample_inside_and_past_the_frame(smoke):
     # faces 0 to 3 are centred on a border: half of each crop is the clamped edge
     centre = inv[:, :4, :, :2] @ torch.tensor([16.0, 16.0]) + inv[:, :4, :, 2]
     assert bool((centre[:, 0, 0].abs() < 1e-3).all()) and bool(((centre[:, 1, 0] - 127).abs() < 1e-3).all())
+
+
+@pytest.mark.parametrize("case,lo,hi", [("smoke", 0.5, 0.7), ("sparse", 0.04, 0.16), ("crowd", 1.0, 1.0)])
+def test_greedy_input_has_its_share_above(smoke, case, lo, hi):
+    from frp_tpu_torch.ops import nms_cuda
+
+    eff, above = smoke.greedy_input(torch.device("cpu"), 128, case)
+    assert eff.shape == (8, 128, 128) and eff.dtype == torch.float32
+    assert above.shape == (8, 128) and above.dtype == torch.bool
+    assert lo <= float(above.float().mean()) <= hi
+    keep = nms_cuda.greedy_suppress(eff, above, 1.0)
+    kept, n_above = int(keep.sum()), int(above.sum())
+    assert 0 < kept < n_above  # the pass has something to suppress
+    if case == "crowd":  # four centres a frame: most of a crowd goes
+        assert kept < n_above / 2
