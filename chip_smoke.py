@@ -44,8 +44,29 @@ Phases, each printed on its own lines, in order:
             embeddings and fake_prob within 2e-2); the enrolled face
             matches; prints ms a call over 20 calls.
 
-Every count of kernel launches is set to 0 just before phases 4, 5 and 7 and
-read just after. Any failed check raises, so the run exits non-zero. The
+8. accuracy the accuracy profile (iresnet18 + flip-TTA, its flip-mode
+            calibration, the rest as phase 4) over phase 4's stream and
+            enrolment, with phase 4's checks and numbers. Then the same
+            engine built with FRP_EMBED_COMPACT=0 on the same batch: valid,
+            count and best_idx bit for bit, embeddings and fake_prob within
+            2e-2; the embed stage's device ms with compaction on and off (two
+            short streams each, in turns), beside its bound (the stage's
+            matmul and conv FLOPs, as torch's FlopCounterMode counts them,
+            over the bf16 peak), and the device-busy ms a batch of a third
+            stream each from a torch.profiler trace. The same for the default
+            profile on phase 4's engine. Last, phase 6's parity for this
+            profile at 4 slots a frame.
+9. pipelined a fresh default-profile engine over phase 4's stream, submitted
+            then fetched one batch at a time; precompile_delta_rungs (one
+            no-op payload a ladder rung, the resident batch unchanged); then
+            the same payloads uploaded by put_payload on a second thread,
+            submitted on this one and fetched with fetch_many in groups of 4,
+            twice, and once more submitted then fetched: every pass equals
+            the first (integer and mask columns bit for bit, floats within
+            1e-3). Prints each pass's frames/s and ms/batch.
+
+Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8 and
+9 and read just after. Any failed check raises, so the run exits non-zero. The
 line before the last is one JSON object with every kernel's numbers; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Where torch.cuda.is_available() is false it exits non-zero and prints no
@@ -55,17 +76,21 @@ result.
 from __future__ import annotations
 
 import json
+import os
+import queue
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 from frp_tpu_torch.config import load_config
 from frp_tpu_torch.engine.batching import DeltaEncoder
-from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline
+from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline, embed_compact_rungs
 from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
@@ -78,10 +103,13 @@ from frp_tpu_torch.testing.synthetic import make_scene
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # bfloat16 on the tensor cores
 
 PROFILE = dict(det_size=640, max_faces_per_frame=16, pre_nms_topk=256,
                compute_dtype="bfloat16", embedder_arch="mobilefacenet",
                embed_flip_tta=False)
+ACCURACY = {**PROFILE, "embedder_arch": "iresnet18", "embed_flip_tta": True}
+ACCURACY_SCALE = 0.81303  # weights/calibration_iresnet18_flip.json
 FRAMES = 8
 TICKS = 20  # delta ticks after the keyframe
 WARM = 3  # ticks left out of the steady-state window
@@ -583,6 +611,248 @@ def run_fused(dev, scenes: np.ndarray, profile: dict, eng: RecognitionEngine,
                 ms_per_call=ms, enrolled_distance=float(got["best_distance"][j][hit].min()))
 
 
+def param_count(tree) -> int:
+    """Numbers in a converted parameter tree (the per-dtype caches left out)."""
+    if isinstance(tree, dict):
+        return sum(param_count(v) for k, v in tree.items() if not str(k).startswith("_"))
+    if isinstance(tree, list):
+        return sum(param_count(v) for v in tree)
+    return tree.numel() if isinstance(tree, torch.Tensor) else 0
+
+
+def embed_bound(eng: RecognitionEngine, frames_yuv: np.ndarray, compact: bool) -> dict:
+    """The embed stage's work on one batch: its matmul and conv FLOPs as
+    FlopCounterMode counts them (the rung it picks, both flip-TTA forwards,
+    spoof), the bytes it must move (the crops it runs on, read once, and the
+    weights at the compute dtype, read once), and the least time they take.
+    `compact` says whether the engine was built with compaction on."""
+    with torch.no_grad():
+        rgb = eng._stages["ingest"](eng._upload(frames_yuv))
+        dets = eng._stages["detect"](eng.params["detector"], rgb, eng._priors)
+        crops = eng._stages["crop"](rgb, dets)["crops"]
+        with FlopCounterMode(display=False) as counter:
+            eng._stages["embed"](eng.params, crops, dets["valid"], eng.distance_scale)
+    flops = float(counter.get_total_flops())
+    nv = int(dets["valid"].sum())
+    n = dets["valid"].numel()
+    rung = next((k for k in embed_compact_rungs(n) if nv <= k), n) if compact else n
+    width = torch.finfo(getattr(torch, eng.cfg.compute_dtype)).bits // 8
+    nbytes = rung * 112 * 112 * 3 * 4 + width * (
+        param_count(eng.params["embedder"]) + param_count(eng.params["spoof"]))
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    return dict(flops=flops, bytes=nbytes, faces=nv, slots=n, rung=rung,
+                bound_ms=max(tb, to) * 1e3, bound_by="bytes" if tb >= to else "operations")
+
+
+def stream_ms(eng: RecognitionEngine, payloads: list, warm: int) -> dict:
+    """Median device ms of each stage and ms/batch on the host clock over
+    payloads[warm:], each submitted then fetched."""
+    faces = 0
+    for t, p in enumerate(payloads):
+        if t == warm:
+            torch.cuda.synchronize()
+            eng.stage_events = []
+            t0, faces = time.perf_counter(), 0
+        faces += int(eng.fetch(eng.submit_encoded(p))["count"].sum())
+    elapsed = time.perf_counter() - t0
+    stages = stage_ms(eng.stage_events)
+    eng.stage_events = None
+    return dict(stage_ms=stages, ms_per_batch=elapsed * 1e3 / (len(payloads) - warm),
+                faces_per_batch=faces / (len(payloads) - warm))
+
+
+def device_busy_ms(eng: RecognitionEngine, payloads: list, warm: int) -> float | None:
+    """Device-busy ms a batch over payloads[warm:], each submitted then
+    fetched, from a torch.profiler trace: the union of the card's kernel and
+    copy intervals, over the batches. None when the trace holds no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in payloads[:warm]:
+        eng.fetch(eng.submit_encoded(p))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for p in payloads[warm:]:
+            eng.fetch(eng.submit_encoded(p))
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    return (busy + hi - lo) / 1e3 / (len(payloads) - warm)
+
+
+def compaction_runs(dev, scenes: np.ndarray, profile: dict, eng: RecognitionEngine,
+                    ticks: int, warm: int, rounds: int) -> dict:
+    """`eng` (compaction on) against the same profile built with
+    FRP_EMBED_COMPACT=0 and given the same gallery: one batch held (valid,
+    count, best_idx bit for bit, embeddings and fake_prob within 2e-2), the
+    embed stage's work and bound on it, then `rounds` turns of a short delta
+    stream on each (embed device ms, ms/batch) and one profiled stream on
+    each (device-busy ms a batch). Returns the numbers and the batches run."""
+    os.environ["FRP_EMBED_COMPACT"] = "0"
+    try:
+        off = RecognitionEngine(load_config(**profile), device=dev)
+    finally:
+        del os.environ["FRP_EMBED_COMPACT"]
+    for name in eng.gallery.names:
+        off.gallery.add(name, eng.gallery.get(name))
+    batch = tick_batch(scenes, ticks)
+    got, want = eng.process_frames(batch, fmt="yuv420"), off.process_frames(batch, fmt="yuv420")
+    for key in ("valid", "count", "best_idx"):
+        if not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"compaction on and off differ in {key}")
+    v = want["valid"]
+    errs = {key: float(np.abs(got[key][v] - want[key][v]).max()) for key in ("embeddings", "fake_prob")}
+    for key, err in errs.items():
+        if not err <= 2e-2:
+            raise AssertionError(f"compaction on and off differ in {key} by {err}")
+    bounds = {"on": embed_bound(eng, batch, True), "off": embed_bound(off, batch, False)}
+
+    enc = DeltaEncoder(block_bytes=128)
+    payloads = [enc.encode(tick_batch(scenes, t)) for t in range(min(ticks, 10) + 1)]
+    per: dict[str, list] = {"on": [], "off": []}
+    for _ in range(rounds):
+        for key, e in (("on", eng), ("off", off)):
+            per[key].append(stream_ms(e, payloads, warm))
+    busy = {key: device_busy_ms(e, payloads, warm) for key, e in (("on", eng), ("off", off))}
+    return dict(max_abs_err=errs, faces=int(v.sum()), bound=bounds, busy_ms=busy,
+                batches=(2 * rounds + 2) * len(payloads) + 4,  # + process_frames, bound runs
+                embed_ms={key: [r["stage_ms"]["embed"] for r in runs] for key, runs in per.items()},
+                stream_ms_per_batch={key: [r["ms_per_batch"] for r in runs] for key, runs in per.items()})
+
+
+def run_accuracy(dev, scenes: np.ndarray, ticks: int, warm: int, default_eng: RecognitionEngine,
+                 rounds: int = 2) -> dict:
+    """Phase 8: the accuracy profile's scan (phase 4's checks), then its
+    compaction on against off, and for comparison the default profile's
+    (`default_eng`, phase 4's engine). Returns phase 4's numbers plus the
+    compaction runs' under "compaction" and "default_compaction"."""
+    scan = run_scan(dev, scenes, ACCURACY, ticks, warm)
+    eng = scan["engine"]
+    if abs(eng.distance_scale - ACCURACY_SCALE) > 1e-9:
+        raise AssertionError(f"accuracy distance_scale {eng.distance_scale}, expected {ACCURACY_SCALE}")
+    if not str(eng.weights_loaded["embedder"]).endswith("iresnet18.npz"):
+        raise AssertionError(f"accuracy embedder loaded from {eng.weights_loaded['embedder']}")
+    comp = compaction_runs(dev, scenes, ACCURACY, eng, ticks, warm, rounds)
+    base = compaction_runs(dev, scenes, PROFILE, default_eng, ticks, warm, rounds)
+    n_batches = comp["batches"] + base["batches"]
+    got = launches()
+    want = {name: scan["launches"][name] + (n_batches if name != "greedy_nms" else 0)
+            for name in KERNELS}
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"compaction runs: launches {got}, expected {want}")
+    scan.update(launches=got, batches=scan["batches"] + n_batches,
+                compaction=comp, default_compaction=base)
+    return scan
+
+
+def serial_pass(eng: RecognitionEngine, payloads: list, group: int, sync) -> tuple[list, float]:
+    """Each payload submitted then fetched; (results, seconds after the
+    first `group` payloads)."""
+    out = []
+    for t, p in enumerate(payloads):
+        if t == group:
+            sync()
+            t0 = time.perf_counter()
+        out.append(eng.fetch(eng.submit_encoded(p)))
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def piped_pass(eng: RecognitionEngine, payloads: list, group: int, sync) -> tuple[list, float]:
+    """put_payload on a second thread feeding a queue, submit_encoded on this
+    one, fetch_many in groups of `group`; (results, seconds after the first
+    group)."""
+    q: queue.Queue = queue.Queue(maxsize=2 * group)
+    failed: list = []
+
+    def transfer():
+        try:
+            for p in payloads:
+                q.put(eng.put_payload(p))
+        except BaseException as e:  # handed to the main thread, which raises it
+            failed.append(e)
+            q.put(None)
+
+    th = threading.Thread(target=transfer, name="put_payload", daemon=True)
+    th.start()
+    out, handles = [], []
+    for t in range(len(payloads)):
+        if t == group:
+            sync()
+            t0 = time.perf_counter()
+        p = q.get(timeout=300)
+        if p is None:
+            raise failed[0]
+        handles.append(eng.submit_encoded(p))
+        if len(handles) == group or t == len(payloads) - 1:
+            out.extend(eng.fetch_many(handles))
+            handles = []
+    sync()
+    seconds = time.perf_counter() - t0
+    th.join(timeout=60)
+    if th.is_alive():
+        raise AssertionError("the put_payload thread did not finish")
+    return out, seconds
+
+
+def run_pipelined(dev, scenes: np.ndarray, profile: dict, ticks: int, group: int = 4) -> dict:
+    """Phase 9: one stream four times on one engine, in turns submitted then
+    fetched batch by batch, and pipelined (put_payload on a second thread,
+    fetch_many in groups of `group`), with the delta rungs precompiled after
+    the first pass; each pass timed over the payloads after the first group.
+    Every pipelined pass must equal the first serial one."""
+    eng = RecognitionEngine(load_config(**profile), device=dev)
+    enc = DeltaEncoder(block_bytes=128)
+    payloads = [enc.encode(tick_batch(scenes, t)) for t in range(ticks + 1)]
+    timed = dev.type == "cuda"
+
+    def sync():
+        if timed:
+            torch.cuda.synchronize()
+
+    reset_launches()
+    want, first = serial_pass(eng, payloads, group, sync)
+    seconds = {"serial": [first], "piped": []}
+    before = eng._delta_prev.clone()
+    rungs = eng.precompile_delta_rungs()
+    if rungs != len(DeltaEncoder.LADDER):
+        raise AssertionError(f"precompile_delta_rungs ran {rungs} rungs, expected {len(DeltaEncoder.LADDER)}")
+    if not torch.equal(eng._delta_prev, before):
+        raise AssertionError("precompile_delta_rungs changed the resident batch")
+    errs: dict[str, float] = {}
+    for kind in ("piped", "piped", "serial"):
+        got, sec = (piped_pass if kind == "piped" else serial_pass)(eng, payloads, group, sync)
+        seconds[kind].append(sec)
+        for g, w in zip(got, want):
+            for key in ("valid", "count", "best_idx", "is_match"):
+                if not np.array_equal(g[key], w[key]):
+                    raise AssertionError(f"{kind} pass and the first pass differ in {key}")
+            v = w["valid"]
+            for key in ("boxes", "landmarks", "scores", "best_distance", "fake_prob", "quality", "blur_score"):
+                err = float(np.abs(g[key][v] - w[key][v]).max()) if v.any() else 0.0
+                errs[key] = max(errs.get(key, 0.0), err)
+    for key, err in errs.items():
+        if not err <= ATOL:
+            raise AssertionError(f"a later pass and the first pass differ in {key} by {err}")
+    counts = launches()
+    if eng.delta_stats["desyncs"] != 0:
+        raise AssertionError(f"delta_stats {eng.delta_stats}")
+    n_batches = 4 * len(payloads) + rungs
+    if timed and counts != {"detection_head": n_batches, "warp_crops": n_batches, "greedy_nms": 0}:
+        raise AssertionError(f"pipelined phase launches {counts}, expected {n_batches} batches")
+    steady = len(payloads) - group
+    return dict(launches=counts, batches=n_batches, rungs=rungs, max_abs_err=errs, steady=steady,
+                ms_per_batch={k: [x * 1e3 / steady for x in v] for k, v in seconds.items()},
+                frames_per_s={k: [steady * len(scenes) / x for x in v] for k, v in seconds.items()})
+
+
 # --- main --------------------------------------------------------------------
 
 def gpu_name_and_limit() -> str:
@@ -598,9 +868,9 @@ def main() -> int:
               "an NVIDIA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     smi = gpu_name_and_limit()
-    say("device", f"{kind} | torch {torch.__version__} cuda {torch.version.cuda} | "
+    say("device", f"{device_kind} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"devices {torch.cuda.device_count()}")
     print(smi, flush=True)
 
@@ -672,7 +942,53 @@ def main() -> int:
         + f"; enrolled face matched at distance {fused['enrolled_distance']:.4f}")
     say("fused", f"{fused['ms_per_call']:.2f} ms a call (host clock, synchronized) on {smi}")
 
-    counts = {name: scan["launches"][name] + nms["launches"][name] + fused["launches"][name]
+    acc = run_accuracy(dev, scenes, TICKS, WARM, scan["engine"])
+    say("accuracy", f"iresnet18 + flip-TTA, distance scale {acc['engine'].distance_scale}, "
+        f"{FRAMES} x 640 I420 delta stream, {TICKS} ticks after the keyframe: "
+        f"{acc['batches']} batches with the compaction runs, launches {acc['launches']}")
+    say("accuracy", f"steady state over {TICKS + 1 - WARM} ticks (submit then fetch): "
+        f"{acc['frames_per_s']:.1f} frames/s, {acc['faces_per_s']:.1f} faces/s, "
+        f"{acc['faces_per_batch']:.2f} faces/batch, {acc['ms_per_batch']:.2f} ms/batch")
+    say("accuracy", "stage ms (device, median): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in acc["stage_ms"].items()))
+    say("accuracy", f"resident batch == apply_host; enrolled face of frame "
+        f"{acc['enrolled_frame']} matched at distance {acc['enrolled_distance']:.4f}")
+    for name, comp in (("accuracy", acc["compaction"]), ("default", acc["default_compaction"])):
+        say("accuracy", f"{name} profile, compaction on against FRP_EMBED_COMPACT=0 on one batch, "
+            f"{comp['faces']} faces: valid, count, best_idx equal; max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in comp["max_abs_err"].items()))
+        for key in ("on", "off"):
+            b, busy = comp["bound"][key], comp["busy_ms"][key]
+            say("accuracy", f"{name} profile, compaction {key}: embed device ms "
+                + ", ".join(f"{x:.3f}" for x in comp["embed_ms"][key])
+                + "; stream ms/batch " + ", ".join(f"{x:.2f}" for x in comp["stream_ms_per_batch"][key])
+                + "; device busy " + ("not measured (no device activity in the trace)" if busy is None
+                                      else f"{busy:.3f} ms/batch (torch.profiler), idle "
+                                      f"{1 - busy / np.median(comp['stream_ms_per_batch'][key]):.2f} "
+                                      "of the unprofiled streams' median ms/batch")
+                + f"; embed {b['faces']} faces of {b['slots']} slots, {b['rung']} run, "
+                f"{b['flops'] / 1e12:.4f} TFLOP, {b['bytes'] / 1e6:.1f} MB, bound {b['bound_ms']:.3f} ms "
+                f"by {b['bound_by']} (bf16 989 TFLOP/s, 3.35 TB/s)")
+    apar = run_parity(dev, scenes[:2], {**ACCURACY, "max_faces_per_frame": 4})
+    say("accuracy", f"parity f32, TF32 off, 2 frames, 4 slots, {apar['faces']} faces: valid, count, "
+        "best_idx equal on cuda and cpu; max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in apar["max_abs_err"].items()))
+
+    piped = run_pipelined(dev, scenes, PROFILE, TICKS)
+    say("pipelined", f"default profile, {TICKS + 1} payloads four times (serial, pipelined, "
+        f"pipelined, serial), precompile_delta_rungs {piped['rungs']} rungs after the first: "
+        f"launches {piped['launches']}, desyncs 0")
+    say("pipelined", "put_payload thread + submit_encoded + fetch_many(4) equal submit then fetch "
+        "(valid, count, best_idx, is_match bit for bit); max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in piped["max_abs_err"].items()))
+    for way in ("serial", "piped"):
+        say("pipelined", f"{way} over {piped['steady']} batches: frames/s "
+            + ", ".join(f"{x:.1f}" for x in piped["frames_per_s"][way]) + "; ms/batch "
+            + ", ".join(f"{x:.2f}" for x in piped["ms_per_batch"][way]))
+    say("pipelined", f"phase 4: {scan['frames_per_s']:.1f} frames/s ({scan['ms_per_batch']:.2f} "
+        f"ms/batch); on {smi}")
+
+    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped))
               for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -691,7 +1007,7 @@ def main() -> int:
     rows[2].update({f"nms_call_ms_k{k}": c["call_ms"] for k, c in shares.items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -3,4 +3,8 @@
 ``DeviceGallery`` they match against."""
 
 from frp_tpu_torch.engine.gallery import DeviceGallery
-from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline
+from frp_tpu_torch.engine.pipeline import (
+    RecognitionEngine,
+    build_pipeline,
+    embed_compact_rungs,
+)

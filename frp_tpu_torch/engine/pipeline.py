@@ -1,5 +1,5 @@
 """The recognition pipeline on PyTorch (port of ``frp_tpu/engine/pipeline.py``,
-default throughput profile): frames -> detections -> aligned crops ->
+throughput and accuracy profiles): frames -> detections -> aligned crops ->
 embeddings (+ spoof) -> gallery matches, as chained stages whose
 intermediates stay on the device. Two entry points: ``RecognitionEngine``
 (the staged scan below) and ``build_pipeline`` (the same stages as one
@@ -11,7 +11,8 @@ decode + ``nms_padded_batched``, so every call launches kernel 3).
       └ detect: RetinaFace -> top-K -> fused head    (ops/detection_cuda.py, kernel 1)
       └ crop: 5-point similarity -> bilinear warp    (ops/align_cuda.py, kernel 2)
               + quality scores
-      └ embed: MobileFaceNet x distance scale, MobileNetV3 spoof
+      └ embed: MobileFaceNet, or iresnet (+ flip-TTA), x distance scale,
+               MobileNetV3 spoof; valid slots compacted into a rung
       └ match_pack: gallery match, packed [B, M, 22]
     fetch: one device->host copy, unpacked on the host
 
@@ -20,15 +21,15 @@ through decode + ``nms_padded_batched``, whose greedy pass is kernel 3
 (``ops/nms_cuda.py``). Everything is shape-static: M = max_faces slots per
 frame with validity masks.
 
-Not ported yet (ROADMAP): the accuracy profile (iresnet, flip-TTA, embed
-compaction rungs), ``put_payload``, ``fetch_many``,
-``precompile_delta_rungs``, ONNX/.pth import, mesh sharding, and
-``build_pipeline``'s ``with_spoof=False``, ``with_quality=False`` and
-``spoof_size``.
+Not ported yet (ROADMAP): ONNX/.pth import, mesh sharding, iresnet
+training, ``build_pipeline``'s ``with_spoof=False``, ``with_quality=False``
+and ``spoof_size``, and the engine options no caller of the port sets
+(``submit(packed=False)``, ``with_spoof=False``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -39,8 +40,9 @@ import numpy as np
 import torch
 
 from frp_tpu_torch.config import Config, get_config
-from frp_tpu_torch.engine.batching import letterbox
+from frp_tpu_torch.engine.batching import DeltaEncoder, DeltaPayload, letterbox
 from frp_tpu_torch.engine.gallery import DeviceGallery
+from frp_tpu_torch.models.iresnet import init_iresnet, iresnet_forward
 from frp_tpu_torch.models.mobilefacenet import init_mobilefacenet, mobilefacenet_forward
 from frp_tpu_torch.models.mobilenetv3 import init_mobilenetv3_small, mobilenetv3_forward
 from frp_tpu_torch.models.params import convert_params, load_params, same_structure
@@ -81,6 +83,29 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def embed_compact_rungs(
+    n: int, enabled: bool | None = None, rung_env: str | None = None
+) -> list[int]:
+    """Compact-batch sizes (ascending, all < n) for the embed stage's
+    valid-slot compaction; [] disables. Three rungs cover the serving
+    regimes: few faces (n/8), mixed (n/2) and a face-dense scene (13n/16).
+    FRP_EMBED_RUNGS ("16,64,104" style) overrides them, FRP_EMBED_COMPACT=0
+    disables compaction, and batches of n < 64 (enrolment, compare uploads)
+    skip it. ``enabled`` and ``rung_env`` stand in for the two variables:
+    ``build_stages`` reads them once when it builds the stages."""
+    if enabled is None:
+        enabled = os.getenv("FRP_EMBED_COMPACT", "1") != "0"
+    if rung_env is None:
+        rung_env = os.getenv("FRP_EMBED_RUNGS")
+    if not enabled or n < 64:
+        return []
+    if rung_env:
+        rungs = sorted({int(x) for x in rung_env.split(",") if x.strip()})
+    else:
+        rungs = sorted({max(8, n // 8), n // 2, (13 * n) // 16})
+    return [k for k in rungs if 0 < k < n]
+
+
 def build_stages(
     *,
     device,
@@ -93,13 +118,21 @@ def build_stages(
     top_k: int = 5,
     compute_dtype: str = "bfloat16",
     fused_head: bool = True,
+    embedder_forward=mobilefacenet_forward,
+    flip_tta: bool = False,
+    compact: bool = True,
 ):
     """The pipeline as chained stage functions (the JAX package's
-    ``build_stages`` without its accuracy-profile options). Constants live on
-    ``device`` once, so no stage copies host data to the card. The detect
-    stage's head is the fused detection head (kernel 1), as the JAX stages'
-    on a TPU; ``fused_head=False`` takes decode + ``nms_padded_batched``
-    (kernel 3), the head of the JAX ``build_pipeline``."""
+    ``build_stages`` with spoof and quality always on and 112 px spoof
+    crops). Constants live on ``device`` once, so no stage copies host data
+    to the card. The detect stage's head is the fused detection head
+    (kernel 1), as the JAX stages' on a TPU; ``fused_head=False`` takes
+    decode + ``nms_padded_batched`` (kernel 3), the head of the JAX
+    ``build_pipeline``. ``embedder_forward`` is MobileFaceNet's or
+    iresnet's forward; ``flip_tta`` adds a forward of the mirrored crops.
+    The embed stage's compaction (``embed_compact_rungs``) reads
+    FRP_EMBED_COMPACT and FRP_EMBED_RUNGS here, once; ``compact=False``
+    leaves it out whatever they say (``build_pipeline``, as the JAX one)."""
     cdtype = getattr(torch, compute_dtype)
     template = torch.from_numpy(ARCFACE_TEMPLATE_112.copy()).to(device)
     ident = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=torch.float32, device=device)
@@ -156,18 +189,50 @@ def build_stages(
             "blur_score": q["blur_score"].reshape(b, m),
         }
 
+    def embed_core(params, flat):
+        """Embedder + spoof on a flat crop batch [K, 112, 112, 3] ->
+        (embeddings [K, D] f32, fake_prob [K])."""
+        emb_in = normalize_face(flat).to(cdtype)
+        emb = embedder_forward(params["embedder"], emb_in)
+        if flip_tta:
+            # a second forward of the crops mirrored along W; the sum of the
+            # two unit embeddings is renormalised by its norm (the JAX
+            # formula, not l2_normalize's rsqrt). Spoof is not doubled
+            s = emb + embedder_forward(params["embedder"], torch.flip(emb_in, dims=[2]))
+            emb = s / torch.clamp(torch.linalg.vector_norm(s, dim=-1, keepdim=True), min=1e-12)
+        logits = mobilenetv3_forward(params["spoof"], normalize_imagenet(flat).to(cdtype))
+        return emb, torch.softmax(logits, dim=-1)[:, 1]
+
+    compact_enabled = compact and os.getenv("FRP_EMBED_COMPACT", "1") != "0"
+    compact_rung_env = os.getenv("FRP_EMBED_RUNGS")
+
     def embed_stage(params, crops, valid, scale=1.0):
         b, m = crops.shape[0], crops.shape[1]
-        flat = crops.reshape(b * m, 112, 112, 3)
+        n = b * m
+        flat = crops.reshape(n, 112, 112, 3)
         vflat = valid.reshape(-1)
-        emb = mobilefacenet_forward(params["embedder"], normalize_face(flat).to(cdtype))
-        # distance-scale calibration (weights/calibration.json): scaling
+        rungs = embed_compact_rungs(n, enabled=compact_enabled, rung_env=compact_rung_env)
+        # valid-slot compaction: the valid crops, gathered first, run through
+        # the nets in the smallest rung that holds them, and their results
+        # are scattered back. The JAX package picks the rung on the device
+        # (lax.switch); here the host reads the batch's count of valid slots
+        # once and picks it. Past the largest rung the whole batch runs
+        k = None
+        if rungs:
+            nv = int(vflat.sum())
+            k = next((r for r in rungs if nv <= r), None)
+        if k is None:
+            emb, fake = embed_core(params, flat)
+        else:
+            take = torch.argsort((~vflat).to(torch.uint8), stable=True)[:k]
+            emb_k, fake_k = embed_core(params, flat[take])
+            emb = emb_k.new_zeros((n, emb_k.shape[-1])).index_copy_(0, take, emb_k)
+            fake = fake_k.new_zeros((n,)).index_copy_(0, take, fake_k)
+        # distance-scale calibration (weights/calibration*.json): scaling
         # the embeddings scales every euclidean distance downstream
-        logits = mobilenetv3_forward(params["spoof"], normalize_imagenet(flat).to(cdtype))
-        fake = torch.softmax(logits, dim=-1)[:, 1].reshape(b, m)
         return {
             "embeddings_flat": torch.where(vflat[:, None], emb * scale, 0.0),
-            "fake_prob": torch.where(valid, fake, 0.0),
+            "fake_prob": torch.where(valid, fake.reshape(b, m), 0.0),
         }
 
     def match_stage(emb_flat, valid, gallery, gallery_valid, tol):
@@ -286,7 +351,7 @@ def build_pipeline(
     stages = build_stages(
         device=device, det_size=det_size, max_faces=max_faces, pre_nms_topk=pre_nms_topk,
         conf_thresh=conf_thresh, nms_thresh=nms_thresh, iom_thresh=iom_thresh,
-        top_k=top_k, compute_dtype=compute_dtype, fused_head=False)
+        top_k=top_k, compute_dtype=compute_dtype, fused_head=False, compact=False)
 
     @torch.no_grad()
     def pipeline(params, frames, gallery, gallery_valid, priors):
@@ -374,17 +439,17 @@ class RecognitionEngine:
         self.device = resolve_device(device)
         self.cfg = cfg or get_config()
         arch = self.cfg.embedder_arch
-        if arch != "mobilefacenet" or self.cfg.embed_flip_tta:
-            raise NotImplementedError(
-                f"embedder_arch={arch!r}, embed_flip_tta={self.cfg.embed_flip_tta}: "
-                "the accuracy profile is not ported yet (ROADMAP Queue 1, "
-                "accuracy profile)"
-            )
         self._allow_stale_calibration = allow_stale_calibration
         self.preferred_fmt = "yuv420"
+        if arch.startswith("iresnet"):
+            embedder = init_iresnet(seed + 1, variant=arch, embed_dim=self.cfg.embed_dim)
+            embedder_forward = iresnet_forward
+        else:
+            embedder = init_mobilefacenet(seed + 1, embed_dim=self.cfg.embed_dim)
+            embedder_forward = mobilefacenet_forward
         host_params = {
             "detector": init_retinaface(seed),
-            "embedder": init_mobilefacenet(seed + 1, embed_dim=self.cfg.embed_dim),
+            "embedder": embedder,
             "spoof": init_mobilenetv3_small(seed + 2, num_classes=2),
         }
         self.weights_loaded = self._load_weights(host_params, arch)
@@ -403,7 +468,12 @@ class RecognitionEngine:
             nms_thresh=self.cfg.det_nms_threshold,
             iom_thresh=self.cfg.det_nms_iom_threshold,
             compute_dtype=self.cfg.compute_dtype,
+            embedder_forward=embedder_forward,
+            flip_tta=self.cfg.embed_flip_tta,
         )
+        # put_payload's uploads run on a stream of their own, so that they
+        # overlap the scan's work instead of queueing behind it
+        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         # device-resident previous I420 batch for delta transfer
         # (submit_encoded); None until the first raw keyframe
         self._delta_prev = None
@@ -422,24 +492,36 @@ class RecognitionEngine:
 
     # -- weights ----------------------------------------------------------
     def _load_calibration(self) -> float:
-        """Distance-scale constant from calibration.json beside the loaded
-        embedder weights (1.0 when absent or when no trained embedder
-        loaded). A calibration whose recorded weights sha256 differs from
-        the loaded files is refused, unless the engine was built with
-        allow_stale_calibration (then it runs uncalibrated)."""
+        """Distance-scale constant from the calibration file beside the
+        loaded embedder weights (1.0 when absent or when no trained embedder
+        loaded). The file is keyed by arch and mode: with flip-TTA only
+        calibration_{arch}_flip.json, else calibration_{arch}.json and, for
+        MobileFaceNet, calibration.json; a file whose ``flip_tta`` differs
+        from the engine's mode is skipped. A calibration whose recorded
+        weights sha256 differs from the loaded files is refused, unless the
+        engine was built with allow_stale_calibration (then it runs
+        uncalibrated)."""
         emb_path = self.weights_loaded.get("embedder")
         if not emb_path:
             return 1.0
+        arch = self.cfg.embedder_arch
+        flip = bool(self.cfg.embed_flip_tta)
         wd = os.path.dirname(emb_path)
-        for name in ("calibration_mobilefacenet.json", "calibration.json"):
+        if flip:
+            names = [f"calibration_{arch}_flip.json"]
+        else:
+            names = [f"calibration_{arch}.json"]
+            if arch == "mobilefacenet":
+                names.append("calibration.json")
+        for name in names:
             try:
                 with open(os.path.join(wd, name)) as f:
                     cal = json.load(f)
                 scale = float(cal["distance_scale"])
             except (OSError, KeyError, ValueError, TypeError):
                 continue
-            if bool(cal.get("flip_tta", False)):
-                continue  # a flip-TTA scale must not cross modes
+            if bool(cal.get("flip_tta", False)) != flip:
+                continue  # a hand-renamed file must not cross modes
             for key, path in (("weights_sha256", emb_path),
                               ("detector_sha256", self.weights_loaded.get("detector"))):
                 expect = cal.get(key)
@@ -452,14 +534,21 @@ class RecognitionEngine:
                             "%s fingerprint mismatch (%s); running UNCALIBRATED "
                             "(scale 1.0)", name, key)
                         return 1.0
+                    flag = " --flip" if flip else ""
                     raise RuntimeError(
                         f"{name} was calibrated for {key.split('_')[0]} weights "
                         f"sha256={expect[:12]}… but {path} has sha256={got[:12]}…: "
                         "the distance scale does not correspond to these "
-                        "weights. Re-run tools/calibrate_embedder.py and commit "
+                        f"weights. Re-run tools/calibrate_embedder.py --arch {arch}{flag} "
+                        f"(and tools/tiered_eval.py --arch {arch}{flag}) and commit "
                         "weights + artifacts together."
                     )
             return scale
+        if flip or arch != "mobilefacenet":
+            logger.warning(
+                "no %s beside %s: distances are on the raw embedder scale "
+                "(run tools/calibrate_embedder.py --arch %s%s)",
+                names[0], emb_path, arch, " --flip" if flip else "")
         return 1.0
 
     def _load_weights(self, host_params: dict, arch: str) -> dict:
@@ -516,6 +605,19 @@ class RecognitionEngine:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
+
+    def _payload_tensor(self, x, dtype, copy: bool = False) -> torch.Tensor:
+        """A payload array on the engine's device. A tensor (``put_payload``'s)
+        is taken as it is where it already lies there, and marked as used by
+        the current stream, so that the caching allocator does not hand its
+        memory out while this stream's work may still read it; anything else
+        is uploaded (``copy`` as in ``_upload``)."""
+        if isinstance(x, torch.Tensor):
+            x = x.to(self.device, getattr(torch, np.dtype(dtype).name))
+            if x.is_cuda:
+                x.record_stream(torch.cuda.current_stream(x.device))
+            return x
+        return self._upload(np.asarray(x, dtype=dtype), copy=copy)
 
     def _run_stages(self, frames_dev, tolerance: float, fmt: str = "rgb", packed: bool = True):
         """Chain the stages; returns (device result, gallery names snapshot
@@ -620,8 +722,9 @@ class RecognitionEngine:
         full I420 batch and become the resident batch; "delta" payloads ship
         only changed blocks, which the delta stage scatters onto the resident
         batch (bit-exact). A tagged delta must continue the exact payload
-        stream the resident batch came from, or it raises. Returns a fetch()
-        handle."""
+        stream the resident batch came from, or it raises. Takes
+        ``put_payload``'s payloads without another copy. Returns a fetch() /
+        fetch_many() handle."""
         tolerance = self.cfg.face_tolerance if tolerance is None else tolerance
         tag = (enc.enc_id, enc.seq) if hasattr(enc, "enc_id") and hasattr(enc, "seq") else None
         self._mark("start")
@@ -629,7 +732,7 @@ class RecognitionEngine:
             # COPY: the upload is retained as the resident batch, and on the
             # CPU torch.from_numpy aliases numpy memory — a caller reusing
             # its batch buffer would corrupt every later reconstruction
-            frames_dev = self._upload(np.asarray(enc[1], dtype=np.uint8), copy=True)
+            frames_dev = self._payload_tensor(enc[1], np.uint8, copy=True)
             self.delta_stats["keyframes"] += 1
             self._delta_prev = frames_dev
             if tag is not None:
@@ -653,8 +756,8 @@ class RecognitionEngine:
                     f"{want_seq + 1}). Reset the encoder; the next encode "
                     "ships a raw keyframe."
                 )
-        idx_dev = self._upload(np.asarray(idx, dtype=np.int64))
-        blocks_dev = self._upload(np.asarray(blocks, dtype=np.uint8))
+        idx_dev = self._payload_tensor(idx, np.int64)
+        blocks_dev = self._payload_tensor(blocks, np.uint8)
         new_prev, rgb_dev = self._stages["delta_ingest"](self._delta_prev, idx_dev, blocks_dev)
         self._mark("delta_ingest")
         self.delta_stats["deltas"] += 1
@@ -664,6 +767,60 @@ class RecognitionEngine:
         out, gal_names = self._run_stages(rgb_dev, tolerance, "rgb")
         return out, int(rgb_dev.shape[0]), gal_names, time.perf_counter()
 
+    def put_payload(self, enc):
+        """Upload a DeltaEncoder payload's arrays to the engine's device ahead
+        of ``submit_encoded``, keeping its (enc_id, seq) tag; returns a
+        payload ``submit_encoded`` takes without another copy. Meant for a
+        transfer thread beside the thread that submits: on the card the
+        copies run on a stream of their own and this call returns when they
+        have landed, so they overlap the scan's work and the scan never reads
+        a half-written block. A raw keyframe is copied (it becomes the
+        resident batch, as in ``submit_encoded``); arrays that are tensors on
+        the device already are kept as they are. Payloads must still reach
+        ``submit_encoded`` in encode order (the seq guard enforces it)."""
+        tag = (enc.enc_id, enc.seq) if hasattr(enc, "enc_id") and hasattr(enc, "seq") else None
+        side = self._copy_stream
+        with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+            if enc[0] == "raw":
+                data = ("raw", self._payload_tensor(enc[1], np.uint8, copy=True))
+            else:
+                _, idx, blocks = enc
+                data = ("delta", self._payload_tensor(idx, np.int64),
+                        self._payload_tensor(blocks, np.uint8))
+        if side is not None:
+            side.synchronize()
+        return DeltaPayload(data, *tag) if tag is not None else data
+
+    def precompile_delta_rungs(self, block: int | None = None) -> int:
+        """Run the delta stage once at every DeltaEncoder ladder rung for the
+        resident batch's shape, with all-padding payloads (idx = -1, which
+        rebuild the resident batch bit for bit), so a live stream's first
+        payload at each rung meets a warm allocator and cuDNN's algorithm
+        choice for its shapes. Needs a raw keyframe through
+        ``submit_encoded`` first; returns the number of rungs run (0 with no
+        resident batch or a shape that does not block-align). ``block`` is
+        the encoder's block size, FRP_DELTA_BLOCK (128) when None."""
+        if self._delta_prev is None:
+            return 0
+        shape = self._delta_prev.shape
+        b = int(shape[0])
+        nbytes = int(np.prod(shape[1:]))
+        block = block or int(os.getenv("FRP_DELTA_BLOCK", "128"))
+        if b == 0 or nbytes % block:
+            return 0
+        nblocks = nbytes // block
+        done = 0
+        for denom in DeltaEncoder.LADDER:
+            cap = nblocks // denom
+            if cap == 0:
+                continue
+            idx = np.full((b, cap), -1, np.int32)
+            blocks = np.zeros((b, cap, block), np.uint8)
+            # untagged: the seq guard skips it and keeps the live stream's tag
+            self.fetch(self.submit_encoded(("delta", idx, blocks)))
+            done += 1
+        return done
+
     def fetch(self, handle):
         """Wait for a submit() handle and return host-side results."""
         out, b, gal_names, t_submit = handle
@@ -671,3 +828,22 @@ class RecognitionEngine:
         out["gallery_names"] = gal_names
         self._record(b, out["count"], time.perf_counter() - t_submit)
         return out
+
+    def fetch_many(self, handles: list) -> list:
+        """Fetch a group of submit() handles with ONE device-to-host copy (the
+        packed results joined on the device first). Returns the host-side
+        result dicts in submission order."""
+        if not handles:
+            return []
+        outs = [h[0] for h in handles]
+        host = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
+        now = time.perf_counter()
+        results, at = [], 0
+        for o, (_, b, gal_names, t_submit) in zip(outs, handles):
+            n = o.numel()
+            out = unpack_packed(host[at : at + n].reshape(tuple(o.shape)))
+            at += n
+            out["gallery_names"] = gal_names
+            self._record(b, out["count"], max(0.0, now - t_submit))
+            results.append(out)
+        return results

@@ -1,0 +1,100 @@
+"""IResNet embedder in PyTorch (port of ``frp_tpu/models/iresnet.py``,
+inference only): ArcFace's improved ResNet at 112x112, iresnet18/34/50/100,
+the embedder of the accuracy profile.
+
+Block: BN, 3x3 conv, BN, PReLU, 3x3 conv carrying the stride, BN; a 1x1 conv
+(+BN) with the stride on the shortcut where the shape changes. Head: BN, a
+flatten in (c, h, w) order, an fc to ``embed_dim``, a 1-D feature BN in f32,
+then the L2 normalisation.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from frp_tpu_torch.models import nn
+
+_DEPTHS = {
+    "iresnet18": (2, 2, 2, 2),
+    "iresnet34": (3, 4, 6, 3),
+    "iresnet50": (3, 4, 14, 3),
+    "iresnet100": (3, 13, 30, 3),
+}
+_WIDTHS = (64, 128, 256, 512)
+
+
+def _block_init(rng, cin, cout, stride):
+    p = {
+        "bn1": nn.bn_init(cin),
+        "conv1": nn.conv_init(rng, 3, 3, cin, cout),
+        "bn2": nn.bn_init(cout),
+        "prelu": nn.prelu_init(cout),
+        "conv2": nn.conv_init(rng, 3, 3, cout, cout),
+        "bn3": nn.bn_init(cout),
+    }
+    if stride != 1 or cin != cout:
+        p["down_conv"] = nn.conv_init(rng, 1, 1, cin, cout)
+        p["down_bn"] = nn.bn_init(cout)
+    return p
+
+
+def _block(p, x, stride):
+    y = nn.batch_norm(p["bn1"], x)
+    y = nn.conv(p["conv1"], y)
+    y = nn.batch_norm(p["bn2"], y)
+    y = nn.prelu(p["prelu"], y)
+    y = nn.conv(p["conv2"], y, stride=stride)
+    y = nn.batch_norm(p["bn3"], y)
+    if "down_conv" in p:
+        x = nn.batch_norm(p["down_bn"], nn.conv(p["down_conv"], x, stride=stride))
+    return x + y
+
+
+def init_iresnet(rng_or_seed=0, variant: str = "iresnet18", embed_dim: int = 128) -> dict:
+    """Numpy parameter tree, equal to ``frp_tpu.models.iresnet.init_iresnet``
+    for the same seed and variant."""
+    if variant not in _DEPTHS:
+        raise ValueError(f"unknown variant {variant}; options: {sorted(_DEPTHS)}")
+    rng = nn.as_rng(rng_or_seed)
+    params = {
+        "stem": nn.conv_init(rng, 3, 3, 3, 64),
+        "stem_bn": nn.bn_init(64),
+        "stem_prelu": nn.prelu_init(64),
+        "stages": [],
+    }
+    cin = 64
+    for width, n_blocks in zip(_WIDTHS, _DEPTHS[variant]):
+        stage = []
+        for b in range(n_blocks):
+            stage.append(_block_init(rng, cin, width, 2 if b == 0 else 1))
+            cin = width
+        params["stages"].append(stage)
+    # 112 / 2^4 = 7 -> feature map [512, 7, 7]
+    params["head_bn"] = nn.bn_init(cin)
+    params["fc"] = nn.dense_init(rng, cin * 7 * 7, embed_dim)
+    params["feat_bn"] = nn.bn_init(embed_dim)
+    return params
+
+
+def iresnet_forward(params: dict, x: torch.Tensor, normalize: bool = True,
+                    train: bool = False) -> torch.Tensor:
+    """x: [B, 112, 112, 3] normalized crops, NHWC, any float dtype. Returns
+    [B, D] float32 embeddings (L2-normalized unless normalize=False).
+    Training (batch statistics) is not ported yet and raises."""
+    if train:
+        raise NotImplementedError(
+            "iresnet_forward(train=True): training is not ported yet (ROADMAP "
+            "Queue 1, training)")
+    y = nn.conv(params["stem"], x.permute(0, 3, 1, 2))
+    y = nn.batch_norm(params["stem_bn"], y)
+    y = nn.prelu(params["stem_prelu"], y)
+    for stage in params["stages"]:
+        for b, block in enumerate(stage):
+            y = _block(block, y, 2 if b == 0 else 1)
+    y = nn.batch_norm(params["head_bn"], y)
+    # the activations are logically NCHW, so a reshape flattens in (c, h, w)
+    # order, the order the fc's inputs index (the JAX package transposes its
+    # NHWC map to NCHW first); reshape copies a channels-last map as needed
+    emb = nn.dense(params["fc"], y.reshape(y.shape[0], -1)).to(torch.float32)
+    emb = nn.batch_norm(params["feat_bn"], emb)
+    return nn.l2_normalize(emb) if normalize else emb

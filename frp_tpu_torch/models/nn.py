@@ -126,15 +126,24 @@ def conv(p: dict, x: torch.Tensor, stride: int = 1, padding: str = "SAME", group
 
 
 def batch_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Inference BN: scale and shift folded from the running stats in f32,
-    then cast to x.dtype (as ``frp_tpu/models/nn.py:121-124``)."""
+    """Inference BN over x's channel axis: [B, C, H, W] (NCHW) or [B, C] (a
+    feature BN, as iresnet's ``feat_bn``). Scale and shift are folded from
+    the running stats in f32, then cast to x.dtype (as
+    ``frp_tpu/models/nn.py:121-124``), and shaped [C, 1, 1] or [C] for the
+    input's rank: a [C, 1, 1] fold against a [B, C] input would broadcast to
+    [C, B, C] without an error."""
+    if x.dim() not in (2, 4):
+        raise ValueError(f"batch_norm takes [B, C] or [B, C, H, W], got {tuple(x.shape)}")
     cache = p.setdefault("_folded", {})
-    folded = cache.get(x.dtype)
+    key = (x.dtype, x.dim())
+    folded = cache.get(key)
     if folded is None:
         r = torch.rsqrt(p["var"] + eps)
         scale = (p["gamma"] * r).to(x.dtype)
         shift = (p["beta"] - p["mean"] * p["gamma"] * r).to(x.dtype)
-        folded = cache[x.dtype] = (scale[:, None, None], shift[:, None, None])
+        if x.dim() == 4:
+            scale, shift = scale[:, None, None], shift[:, None, None]
+        folded = cache[key] = (scale, shift)
     scale, shift = folded
     return x * scale + shift
 

@@ -1,7 +1,9 @@
 """PyTorch port, on the card: each hand-written CUDA kernel against its plain
 PyTorch version at the main path's shapes (masks, valid flags and counts bit
-for bit, floats within 1e-3). The kernels have no CPU mode, so these tests
-are marked ``cuda`` and skip where torch.cuda.is_available() is false.
+for bit, floats within 1e-3), and the accuracy profile's embedder, embed
+compaction and pipelined serving calls against the CPU or the unpipelined
+calls. The kernels have no CPU mode, so these tests are marked ``cuda`` and
+skip where torch.cuda.is_available() is false.
 
 The card machine has no JAX and tests/conftest.py imports it, so run them
 there with:
@@ -9,12 +11,20 @@ there with:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q -p no:cacheprovider
 """
 
+import importlib.util
+import os
+import queue
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from frp_tpu_torch.config import load_config
+from frp_tpu_torch.engine.batching import DeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline
+from frp_tpu_torch.models.iresnet import iresnet_forward
+from frp_tpu_torch.models.params import convert_params, load_params
 from frp_tpu_torch.ops import align_cuda, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
@@ -257,3 +267,93 @@ def test_greedy_kernel_refuses_k_above_1024(cuda):
     eff = torch.zeros((1, 1025, 1025), device=cuda)
     with pytest.raises(ValueError):
         nms_cuda.greedy_suppress_kernel(eff, torch.ones((1, 1025), dtype=torch.bool, device=cuda))
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ACCURACY = dict(embedder_arch="iresnet18", embed_flip_tta=True)
+
+
+def _smoke():
+    """chip_smoke.py's rendered scenes and I420 ticks."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_iresnet18_on_the_card_matches_cpu(cuda, dtype):
+    """The shipped iresnet18 on 4 rendered faces: f32 (TF32 off) within 1e-3
+    of the CPU at f32, bf16 at cosine >= 0.99."""
+    host = load_params(os.path.join(REPO, "weights", "iresnet18.npz"))
+    x = np.stack([make_scene(112, np.random.default_rng(30 + i), max_faces=1, portrait=True)[0]
+                  for i in range(4)]).astype(np.float32)
+    x = torch.from_numpy((x - 127.5) / 128.0)
+    with torch.no_grad():
+        want = iresnet_forward(convert_params(host), x).numpy()
+        got = iresnet_forward(convert_params(host, cuda), x.to(cuda, getattr(torch, dtype))).cpu().numpy()
+    assert got.shape == (4, 128) and got.dtype == np.float32
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    else:
+        assert (np.sum(got * want, 1) / np.linalg.norm(got, axis=1) / np.linalg.norm(want, axis=1)).min() >= 0.99
+
+
+@pytest.mark.cuda
+def test_accuracy_compaction_on_matches_off(cuda, monkeypatch):
+    """The accuracy engine at full width on 8 rendered 640 scenes (128 slots:
+    compaction picks a rung) against the same engine built with
+    FRP_EMBED_COMPACT=0: valid, count, best_idx bit for bit, embeddings and
+    fake_prob within 2e-2 (bf16; a smaller batch may take another cuDNN
+    algorithm)."""
+    smoke = _smoke()
+    scenes = smoke.render_scenes(8, 640, 0)
+    on = RecognitionEngine(load_config(**ACCURACY), device=cuda)
+    monkeypatch.setenv("FRP_EMBED_COMPACT", "0")
+    off = RecognitionEngine(load_config(**ACCURACY), device=cuda)
+    monkeypatch.delenv("FRP_EMBED_COMPACT")
+    want, got = off.process_frames(scenes), on.process_frames(scenes)
+    assert 0 < want["count"].sum() <= 64
+    for key in ("valid", "count", "best_idx"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    v = want["valid"]
+    for key in ("embeddings", "fake_prob"):
+        np.testing.assert_allclose(got[key][v], want[key][v], rtol=0, atol=2e-2, err_msg=key)
+    assert not got["embeddings"][~v].any()
+
+
+@pytest.mark.cuda
+def test_put_payload_thread_and_fetch_many_match_fetch(cuda):
+    """The default engine at full width over a delta stream: payloads uploaded
+    by put_payload on a second thread, submitted here and fetched with
+    fetch_many in groups of 3, against submit then fetch on the same engine
+    (valid, count, best_idx, is_match bit for bit, floats within 1e-3)."""
+    smoke = _smoke()
+    scenes = smoke.render_scenes(8, 640, 0)
+    enc = DeltaEncoder(block_bytes=128)
+    payloads = [enc.encode(smoke.tick_batch(scenes, t)) for t in range(7)]
+    eng = RecognitionEngine(load_config(), device=cuda)
+    want = [eng.fetch(eng.submit_encoded(p)) for p in payloads]
+    q: queue.Queue = queue.Queue()
+    th = threading.Thread(target=lambda: [q.put(eng.put_payload(p)) for p in payloads])
+    th.start()
+    got, handles = [], []
+    for i in range(len(payloads)):
+        up = q.get(timeout=120)
+        assert all(a.is_cuda for a in up[1:])
+        handles.append(eng.submit_encoded(up))
+        if len(handles) == 3 or i == len(payloads) - 1:
+            got += eng.fetch_many(handles)
+            handles = []
+    th.join(timeout=60)
+    assert not th.is_alive()
+    assert eng.delta_stats["desyncs"] == 0
+    for g, w in zip(got, want):
+        for key in ("valid", "count", "best_idx", "is_match"):
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+        v = w["valid"]
+        for key in ("boxes", "landmarks", "scores", "best_distance", "fake_prob", "quality"):
+            np.testing.assert_allclose(g[key][v], w[key][v], rtol=0, atol=1e-3, err_msg=key)
+    np.testing.assert_array_equal(eng._delta_prev.cpu().numpy().reshape(8, -1),
+                                  smoke.tick_batch(scenes, 6).reshape(8, -1))

@@ -16,6 +16,16 @@ from frp_tpu_torch.ops.nms import overlap_matrix
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The suite runs its files in parallel worker processes: two intra-op
+    threads a test keep those from oversubscribing the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -71,3 +81,34 @@ def test_greedy_input_has_its_share_above(smoke, case, lo, hi):
     assert 0 < kept < n_above  # the pass has something to suppress
     if case == "crowd":  # four centres a frame: most of a crowd goes
         assert kept < n_above / 2
+
+
+def test_pipelined_phase_runs_on_the_cpu(smoke):
+    """Phase 9 at det 128 on the CPU: every pass equals the first and the
+    delta rungs are precompiled (the timing and the launch counts need the
+    card)."""
+    profile = dict(smoke.PROFILE, det_size=128, max_faces_per_frame=4, pre_nms_topk=64,
+                   det_conf_threshold=0.3, compute_dtype="float32")
+    scenes = smoke.render_scenes(2, 128, 0)
+    out = smoke.run_pipelined(torch.device("cpu"), scenes, profile, ticks=4, group=2)
+    assert out["rungs"] == 4 and out["batches"] == 4 * 5 + 4
+    assert set(out["ms_per_batch"]) == {"serial", "piped"} and len(out["ms_per_batch"]["piped"]) == 2
+    assert all(err == 0.0 for err in out["max_abs_err"].values())
+
+
+def test_embed_bound_counts_the_rung(smoke, monkeypatch):
+    """The embed stage's FLOPs and bytes at det 128 on 16 frames x 4 slots
+    follow the rung compaction picks, against the engine built with
+    FRP_EMBED_COMPACT=0."""
+    from frp_tpu_torch.config import load_config
+    from frp_tpu_torch.engine.pipeline import RecognitionEngine
+
+    cfg = load_config(det_size=128, max_faces_per_frame=4, pre_nms_topk=64,
+                      det_conf_threshold=0.3, compute_dtype="float32")
+    frames = np.stack([smoke.rgb_to_i420(s) for s in smoke.render_scenes(16, 128, 0)])
+    on = smoke.embed_bound(RecognitionEngine(cfg, device="cpu"), frames, True)
+    monkeypatch.setenv("FRP_EMBED_COMPACT", "0")
+    off = smoke.embed_bound(RecognitionEngine(cfg, device="cpu"), frames, False)
+    assert on["slots"] == off["slots"] == off["rung"] == 64 and 0 < on["faces"] <= on["rung"] < 64
+    assert on["flops"] * 64 == pytest.approx(off["flops"] * on["rung"], rel=1e-6)
+    assert on["bytes"] < off["bytes"] and on["bound_by"] == "operations"
