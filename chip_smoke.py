@@ -64,22 +64,44 @@ Phases, each printed on its own lines, in order:
             twice, and once more submitted then fetched: every pass equals
             the first (integer and mask columns bit for bit, floats within
             1e-3). Prints each pass's frames/s and ms/batch.
+10. platform the port's serving platform as a user runs it: AppContext on the
+            card with the default config (det 640, 16 slots, bf16, delta
+            transfer on), 8 synthetic 1920x1080 cameras and a temporary data
+            dir. One dry run_scan warms it up; camera 0's face is enrolled
+            through FaceService.encode_image and store_face; the port's
+            HTTPServer listens on 127.0.0.1:0 and a Socket.IO client
+            connects; 20 GET /camera/alerts follow over the socket, each a
+            scan (letterbox, delta payload, engine, tracking, alerts). Checks:
+            every scan scanned 8 cameras and found faces, the enrolled face
+            matched on camera 0 below the tolerance every time, alerts and
+            tracking records landed in the store and new_alert reached the
+            socket, delta_stats shows deltas and no desync, kernels 1 and 2
+            launched once a scan. Prints ms a scan on the host clock (and its
+            parts, from the scan's stage timers), device ms a scan and a
+            stage, the delta payload's size, scans/s and frames/s. Then
+            the same cameras through a cuda and a cpu context, both at f32
+            (TF32 off), 2 scans each: the same targets and cameras, valid,
+            count and best_idx bit for bit, boxes within 1e-2 px.
 
-Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8 and
-9 and read just after. Any failed check raises, so the run exits non-zero. The
-line before the last is one JSON object with every kernel's numbers; the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
-Where torch.cuda.is_available() is false it exits non-zero and prints no
-result.
+Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9
+and 10 and read just after. Any failed check raises, so the run exits
+non-zero. The line before the last is one JSON object with every kernel's
+numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
+..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
 
+import asyncio
+import base64
 import json
 import os
 import queue
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -88,6 +110,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
+from frp_tpu_torch.api.http import HTTPServer
+from frp_tpu_torch.api.main import build_app
+from frp_tpu_torch.api.socketio import read_frame
 from frp_tpu_torch.config import load_config
 from frp_tpu_torch.engine.batching import DeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline, embed_compact_rungs
@@ -97,6 +122,8 @@ from frp_tpu_torch.ops.anchors import generate_anchors
 from frp_tpu_torch.ops.decode import decode_boxes, decode_landmarks
 from frp_tpu_torch.ops.nms import nms_padded_batched, overlap_matrix
 from frp_tpu_torch.ops.topk import top_k
+from frp_tpu_torch.platform.context import AppContext
+from frp_tpu_torch.platform.state import SyntheticSource
 from frp_tpu_torch.testing.payloads import crowd_payload
 from frp_tpu_torch.testing.synthetic import make_scene
 
@@ -853,6 +880,293 @@ def run_pipelined(dev, scenes: np.ndarray, profile: dict, ticks: int, group: int
                 frames_per_s={k: [steady * len(scenes) / x for x in v] for k, v in seconds.items()})
 
 
+# --- phase 10: the serving platform -------------------------------------------
+
+PLATFORM_CAMERAS = 8
+PLATFORM_SOURCE = (1920, 1080)  # the bench protocol's 8 x 1080p feeds
+PLATFORM_REQUESTS = 20
+ENROLLED = "camera0_person"
+
+
+def platform_app(dev, data_dir: str, **overrides):
+    """The port's app as its entry point builds it, from the default config
+    (or `overrides` of it) with a data dir of its own and the 8 synthetic
+    1080p cameras. The engine keeps the bytes of every payload it is sent
+    and every result it returns: the dict of lists ("payload_bytes", "out")
+    that comes back with (router, sio, ctx)."""
+    cfg = load_config(data_dir=data_dir, log_dir=os.path.join(data_dir, "logs"), **overrides)
+    cams = [{"id": i, "name": f"Camera {i}", "geo": (18.52 + 0.01 * i, 73.85),
+             "source": "synthetic:%dx%d" % PLATFORM_SOURCE} for i in range(PLATFORM_CAMERAS)]
+    router, sio, ctx = build_app(AppContext(cfg=cfg, camera_configs=cams, device=dev))
+    seen: dict = {"payload_bytes": [], "out": []}
+    submit, fetch = ctx.engine.submit_encoded, ctx.engine.fetch
+
+    def recording_submit(enc, *args, **kwargs):
+        seen["payload_bytes"].append(sum(int(a.nbytes) for a in enc[1:]))
+        return submit(enc, *args, **kwargs)
+
+    def recording_fetch(handle):
+        out = fetch(handle)
+        seen["out"].append(out)
+        return out
+
+    ctx.engine.submit_encoded, ctx.engine.fetch = recording_submit, recording_fetch
+    return router, sio, ctx, seen
+
+
+def enrol(ctx, frame_bgr: np.ndarray, contexts=()) -> float:
+    """Enrol the face of a BGR camera frame as ENROLLED through the face
+    service (encode_image, then store_face into ctx and `contexts`); returns
+    its detection score."""
+    enc = ctx.face_service.encode_image(np.ascontiguousarray(frame_bgr[..., ::-1]))
+    if not enc["success"] or not enc["faces"]:
+        raise AssertionError(f"encode_image found no face in the enrolment frame: {enc}")
+    face = max(enc["faces"], key=lambda f: f["score"])
+    for c in (ctx, *contexts):
+        c.face_service.store_face(ENROLLED, face["embedding"])
+    return face["score"]
+
+
+def start_server(router, sio):
+    """The port's HTTPServer on 127.0.0.1:0 in an event loop thread of its
+    own; returns (port, stop), stop() closes it and joins the thread."""
+    server = HTTPServer(router, ws_handler=sio.handle_upgrade)
+    loop = asyncio.new_event_loop()
+    bound: dict = {}
+    started = threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+
+        async def boot():
+            s = await server.start("127.0.0.1", 0)
+            bound["port"] = s.sockets[0].getsockname()[1]
+            started.set()
+
+        loop.run_until_complete(boot())
+        loop.run_forever()
+
+    th = threading.Thread(target=run, name="http", daemon=True)
+    th.start()
+    if not started.wait(30):
+        raise AssertionError("the HTTP server did not start")
+
+    def stop():
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(30)
+        if th.is_alive():
+            raise AssertionError("the HTTP server thread did not stop")
+        loop.close()
+
+    return bound["port"], stop
+
+
+async def http_get(port: int, path: str) -> tuple[int, dict]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: localhost\r\n\r\n".encode())
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    length = 0
+    while (line := await reader.readline()) not in (b"\r\n", b""):
+        k, v = line.decode().split(":", 1)
+        if k.strip().lower() == "content-length":
+            length = int(v)
+    body = await reader.readexactly(length)
+    writer.close()
+    return status, json.loads(body)
+
+
+def ws_frame(data: bytes) -> bytes:
+    """A masked client text frame (payloads under 126 bytes)."""
+    mask = os.urandom(4)
+    return bytes([0x81, 0x80 | len(data)]) + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(data))
+
+
+async def drive_platform(port: int, requests: int, path: str) -> dict:
+    """A Socket.IO client that counts new_alert events, and `requests` GETs
+    of `path` one after the other; then the alert list, the timers and the
+    delta counters over the same socket API."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    key = base64.b64encode(os.urandom(16)).decode()
+    writer.write((
+        "GET /socket.io/?EIO=4&transport=websocket HTTP/1.1\r\nHost: localhost\r\n"
+        "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+        f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode())
+    await writer.drain()
+    if b"101" not in await reader.readline():
+        raise AssertionError("the Socket.IO upgrade was refused")
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    await asyncio.wait_for(read_frame(reader), 10)  # engine.io open
+    writer.write(ws_frame(b"40"))
+    await writer.drain()
+    if not (await asyncio.wait_for(read_frame(reader), 10))[1].startswith(b"40"):
+        raise AssertionError("no Socket.IO connect acknowledgement")
+    pushed: list = []
+
+    async def listen():
+        while (frame := await read_frame(reader)) is not None:
+            text = frame[1].decode(errors="replace")
+            if text == "2":  # engine.io ping
+                writer.write(ws_frame(b"3"))
+            elif text.startswith("42"):
+                event, data = json.loads(text[2:])
+                if event == "new_alert":
+                    pushed.append(data)
+
+    listener = asyncio.create_task(listen())
+    scans = []
+    t0 = time.perf_counter()
+    for _ in range(requests):
+        t = time.perf_counter()
+        status, body = await http_get(port, path)
+        scans.append(dict(status=status, body=body, wall_s=time.perf_counter() - t))
+    seconds = time.perf_counter() - t0
+    await asyncio.sleep(0.5)  # the last scan's pushes
+    listener.cancel()
+    writer.close()
+    return dict(scans=scans, seconds=seconds, pushed=pushed,
+                alerts=(await http_get(port, "/alerts?limit=200"))[1],
+                timers=(await http_get(port, "/debug/timers"))[1],
+                delta=(await http_get(port, "/debug/delta"))[1])
+
+
+def scan_device_ms(events: list) -> list[float]:
+    """Device ms of each scan in a stage-event list: from its "start" event
+    to its last stage boundary."""
+    out, first, last = [], None, None
+    for name, ev in events + [("start", None)]:
+        if name == "start":
+            if first is not None and last is not None:
+                out.append(first.elapsed_time(last))
+            first, last = ev, None
+        else:
+            last = ev
+    return out
+
+
+def run_platform(dev, requests: int = PLATFORM_REQUESTS, **overrides) -> dict:
+    """Phase 10: the serving platform on the card at full width (the default
+    config; `overrides` of it only for a rehearsal on the CPU)."""
+    tmp = tempfile.mkdtemp(prefix="frp_platform_")
+    router, sio, ctx, seen = platform_app(dev, os.path.join(tmp, "data"), **overrides)
+    fetched = seen["out"]
+    cfg = ctx.cfg
+    want_cfg = dict(det_size=640, max_faces_per_frame=16, pre_nms_topk=256,
+                    compute_dtype="bfloat16", delta_transfer=True)
+    if not overrides and {k: getattr(cfg, k) for k in want_cfg} != want_cfg:
+        raise AssertionError(f"the default config is not the throughput profile: {cfg}")
+    timed = dev.type == "cuda"
+    port, stop = start_server(router, sio)
+    try:
+        t0 = time.perf_counter()
+        dry = ctx.run_scan(cfg.face_tolerance, cfg.frame_skip, 10, True)
+        warm_s = time.perf_counter() - t0
+        if dry["scanned"] != PLATFORM_CAMERAS:
+            raise AssertionError(f"the dry scan scanned {dry['scanned']} cameras")
+        enrol_score = enrol(ctx, ctx.cameras.get(0).read()[1])
+        fetched.clear()
+        seen["payload_bytes"].clear()
+        ctx.timers.reset()
+        reset_launches()
+        if timed:
+            torch.cuda.synchronize()
+            ctx.engine.stage_events = []
+        # max_faces=16 (the engine's slots) is not the route's default of 10,
+        # so no request takes a cached digest: every GET scans
+        run = asyncio.run(drive_platform(port, requests, f"/camera/alerts?max_faces={cfg.max_faces_per_frame}"))
+        got = launches()
+        ctx.tracking._persist_pool.submit(lambda: None).result()  # the tracker's stores land
+        device = scan_device_ms(ctx.engine.stage_events) if timed else []
+        stage_device = stage_ms(ctx.engine.stage_events) if timed else {}
+        ctx.engine.stage_events = None
+    finally:
+        stop()
+        ctx.shutdown()
+
+    tol = cfg.face_tolerance
+    camera0 = []
+    for i, (scan, out) in enumerate(zip(run["scans"], fetched)):
+        body = scan["body"]
+        if scan["status"] != 200 or body["metadata"]["cameras_scanned"] != PLATFORM_CAMERAS:
+            raise AssertionError(f"scan {i}: status {scan['status']}, metadata {body.get('metadata')}")
+        if body["metadata"]["cached"] or int(out["count"].sum()) == 0:
+            raise AssertionError(f"scan {i} was a cached digest or found no face")
+        hits = [d["distance"] for d in body["detections"]
+                if d["target"] == ENROLLED and d["camera_id"] == 0 and d["distance"] <= tol]
+        if not hits:
+            raise AssertionError(f"scan {i}: the enrolled face did not match on camera 0: "
+                                 f"{body['detections']}")
+        camera0.append(min(hits))
+    if len(fetched) != requests:
+        raise AssertionError(f"{len(fetched)} engine results for {requests} scans")
+    n_tracking = ctx.db["tracking"].count_documents({})
+    n_logged = ctx.db["logs"].count_documents({})
+    if not (n_tracking and n_logged and run["alerts"]["total"] and run["pushed"]):
+        raise AssertionError(f"tracking records {n_tracking}, alert logs {n_logged}, "
+                             f"alerts {run['alerts']['total']}, new_alert events {len(run['pushed'])}")
+    if run["delta"]["deltas"] == 0 or run["delta"]["desyncs"] != 0:
+        raise AssertionError(f"delta_stats {run['delta']}")
+    if timed and got != {"detection_head": requests, "warp_crops": requests, "greedy_nms": 0}:
+        raise AssertionError(f"platform launches {got}, expected {requests} scans")
+    shutil.rmtree(tmp, ignore_errors=True)
+    stages = run["timers"]["stages"]
+    faces = [int(o["count"].sum()) for o in fetched]
+    host = [s["body"]["metadata"]["processing_time"] * 1e3 for s in run["scans"]]
+    return dict(
+        launches=got, requests=requests, warm_s=warm_s, enrol_score=enrol_score,
+        faces_per_scan=float(np.mean(faces)), min_faces=min(faces),
+        camera0_distance=(min(camera0), max(camera0)), tolerance=tol,
+        tracking=n_tracking, logged=n_logged, alerts=run["alerts"]["total"],
+        pushed=len(run["pushed"]), delta=run["delta"],
+        scan_ms=float(np.median(host)), scan_ms_mean=float(np.mean(host)),
+        get_ms=float(np.median([s["wall_s"] for s in run["scans"]])) * 1e3,
+        device_ms=float(np.median(device)) if device else None, stage_ms=stage_device,
+        payload_kb=float(np.median(seen["payload_bytes"])) / 1024,
+        parts_ms={k.split(".", 1)[1]: v["mean_ms"] for k, v in stages.items() if k.startswith("scan.")},
+        scans_per_s=requests / run["seconds"],
+        frames_per_s=requests * PLATFORM_CAMERAS / run["seconds"],
+    )
+
+
+def run_platform_parity(dev, scans: int = 2, **overrides) -> dict:
+    """Phase 10's cameras through a context on `dev` and one on the CPU, both
+    at f32 (TF32 off), with the same face enrolled: `scans` scans each."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="frp_platform_parity_")
+    overrides["compute_dtype"] = "float32"
+    apps = [platform_app(d, os.path.join(tmp, str(i)), **overrides)
+            for i, d in enumerate((dev, torch.device("cpu")))]
+    ctxs = [a[2] for a in apps]
+    try:
+        # a source of its own: the cameras' sequences stay in step
+        enrol(ctxs[0], SyntheticSource(*PLATFORM_SOURCE).read()[1], ctxs[1:])
+        res = [[c.run_scan(c.cfg.face_tolerance, 1, c.cfg.max_faces_per_frame)
+                for _ in range(scans)] for c in ctxs]
+    finally:
+        for c in ctxs:
+            c.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    errs: dict[str, float] = {}
+    for i, (a, b) in enumerate(zip(*res)):
+        ta = [(d["target"], d["camera_id"]) for d in a["detections"]]
+        if not ta or ta != [(d["target"], d["camera_id"]) for d in b["detections"]]:
+            raise AssertionError(f"scan {i}: cuda and cpu targets differ: {a['detections']} "
+                                 f"against {b['detections']}")
+    for got, want in zip(apps[0][3]["out"], apps[1][3]["out"]):
+        for key in ("valid", "count", "best_idx"):
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"platform cuda and cpu scans differ in {key}")
+        v = want["valid"]
+        for key in ("boxes", "best_distance", "embeddings"):
+            errs[key] = max(errs.get(key, 0.0), float(np.abs(got[key][v] - want[key][v]).max()))
+    if not errs["boxes"] <= 1e-2:
+        raise AssertionError(f"platform cuda and cpu boxes differ by {errs['boxes']} px")
+    return dict(scans=scans, detections=len(res[0][-1]["detections"]), max_abs_err=errs)
+
+
 # --- main --------------------------------------------------------------------
 
 def gpu_name_and_limit() -> str:
@@ -988,7 +1302,32 @@ def main() -> int:
     say("pipelined", f"phase 4: {scan['frames_per_s']:.1f} frames/s ({scan['ms_per_batch']:.2f} "
         f"ms/batch); on {smi}")
 
-    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped))
+    t_platform = time.perf_counter()
+    plat = run_platform(dev)
+    say("platform", f"AppContext, default config, {PLATFORM_CAMERAS} cameras synthetic "
+        f"{PLATFORM_SOURCE[0]}x{PLATFORM_SOURCE[1]}: dry run_scan {plat['warm_s']:.2f} s, camera 0's "
+        f"face enrolled (score {plat['enrol_score']:.3f}), {plat['requests']} GET /camera/alerts "
+        f"over the socket: launches {plat['launches']}")
+    say("platform", f"every scan scanned {PLATFORM_CAMERAS} cameras; faces a scan "
+        f"{plat['faces_per_scan']:.2f} (least {plat['min_faces']}); the enrolled face matched on "
+        f"camera 0 in every scan at {plat['camera0_distance'][0]:.4f}-{plat['camera0_distance'][1]:.4f} "
+        f"(tolerance {plat['tolerance']}); {plat['tracking']} tracking records and {plat['logged']} "
+        f"alert logs in the store, {plat['alerts']} alerts, {plat['pushed']} new_alert events on the "
+        f"socket; delta_stats {plat['delta']}")
+    say("platform", f"{plat['scans_per_s']:.2f} scans/s, {plat['frames_per_s']:.1f} frames/s; "
+        f"ms a scan (host clock) median {plat['scan_ms']:.1f}, mean {plat['scan_ms_mean']:.1f}, GET round trip "
+        f"{plat['get_ms']:.1f}; device ms a scan (median) "
+        + ("not measured" if plat["device_ms"] is None else f"{plat['device_ms']:.3f}")
+        + "; host parts (mean ms) " + ", ".join(f"{k} {v:.2f}" for k, v in plat["parts_ms"].items())
+        + "; stage ms (device, median) " + ", ".join(f"{k} {v:.3f}" for k, v in plat["stage_ms"].items())
+        + f"; delta payload {plat['payload_kb']:.1f} KiB (median); on {smi}")
+    ppar = run_platform_parity(dev)
+    say("platform", f"f32, TF32 off, cuda and cpu contexts, {ppar['scans']} scans each: the same "
+        f"{ppar['detections']} targets and cameras, valid, count, best_idx equal; max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in ppar["max_abs_err"].items())
+        + f"; phase 10 took {time.perf_counter() - t_platform:.1f} s")
+
+    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped, plat))
               for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -1,16 +1,20 @@
-"""Host-side batching for the PyTorch port: the letterbox, the I420
-active-row ladder and the block-sparse temporal delta encoder (a copy of the
-numpy parts of ``frp_tpu/engine/batching.py``; the native changed-block
-search is not ported yet, and the numpy search gives the same payloads).
+"""Host-side batching for the PyTorch port (a copy of
+``frp_tpu/engine/batching.py``): the letterbox, the I420 active-row ladder,
+the batch builders and their change-hint caches, the mapping of results back
+to cameras, and the block-sparse temporal delta encoder.
 
 Letterboxing uses cv2 where it is installed and a numpy nearest resize where
-it is not, exactly as the JAX package does.
+it is not, exactly as the JAX package does. Where the JAX package falls back
+to its native library (``native/framepack.cpp``: the I420 packer without
+cv2, the changed-band and changed-block searches), the port runs numpy
+copies of the same arithmetic, which give the same bytes.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -39,6 +43,17 @@ def _resize_interp() -> str:
 
 
 _resize_interp._warned = set()  # type: ignore[attr-defined]
+
+
+@dataclass
+class BatchMeta:
+    """Per-slot bookkeeping to map device results back to source streams."""
+
+    cam_ids: list = field(default_factory=list)
+    scales: np.ndarray | None = None   # [B] uniform letterbox scale
+    offsets: np.ndarray | None = None  # [B, 2] (ox, oy) letterbox pad offsets
+    frame_ok: np.ndarray | None = None  # [B] bool
+    orig_hw: list = field(default_factory=list)
 
 
 def letterbox(frame: np.ndarray, size: int, to_rgb: bool = False, rows: int | None = None):
@@ -101,6 +116,491 @@ def active_rows_for(shapes, size: int) -> int | None:
         if need <= rows < size:
             return rows
     return None
+
+
+def build_batch(
+    frames: dict, size: int, slots: int | None = None, bgr: bool = True
+) -> tuple[np.ndarray, BatchMeta]:
+    """Assemble {cam_id: frame or None} into a fixed device batch.
+
+    Args:
+        frames: mapping cam_id -> HxWx3 uint8 frame (BGR by default, as cv2
+            delivers) or None for a dropped frame.
+        size: letterbox target (the detector input size).
+        slots: pad the batch to this many slots. Defaults to len(frames).
+    """
+    cam_ids = list(frames.keys())
+    b = slots or max(1, len(cam_ids))
+    batch = np.zeros((b, size, size, 3), np.uint8)
+    meta = BatchMeta(
+        cam_ids=cam_ids + [None] * (b - len(cam_ids)),
+        scales=np.ones((b,), np.float32),
+        offsets=np.zeros((b, 2), np.float32),
+        frame_ok=np.zeros((b,), bool),
+        orig_hw=[None] * b,
+    )
+    for i, cam in enumerate(cam_ids[:b]):
+        frame = frames[cam]
+        if frame is None or getattr(frame, "size", 0) == 0:
+            continue
+        img, s, (ox, oy) = letterbox(frame, size, to_rgb=bgr)
+        batch[i] = img
+        meta.scales[i] = s
+        meta.offsets[i] = (ox, oy)
+        meta.frame_ok[i] = True
+        meta.orig_hw[i] = frame.shape[:2]
+    return batch, meta
+
+
+def letterbox_i420(frame: np.ndarray, size: int, rows: int):
+    """One BGR frame -> ([rows*3/2, size] I420 uint8, scale, (ox, oy) in
+    full-square coordinates): the letterbox and the BT.601 conversion in one
+    pass, a numpy copy of ``native/framepack.cpp``'s ``pack_one`` (the JAX
+    package's packer where cv2 is missing), float32 arithmetic in the same
+    order, so the same bytes. Bilinear samples at the destination pixel
+    centres (x and y separable), studio-swing Y at every pixel, and U and V
+    taken at the even rows and columns of the full square, not averaged."""
+    f32 = np.float32
+    h, w = frame.shape[:2]
+    s = min(f32(size) / f32(w), f32(rows) / f32(h))
+    nw = max(1, int(f32(w) * s + f32(0.5)))
+    nh = max(1, int(f32(h) * s + f32(0.5)))
+    ox, oy = (size - nw) // 2, (rows - nh) // 2
+    inv = f32(1.0) / s
+
+    def taps(n, limit):
+        c = (np.arange(n, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+        c = np.maximum(f32(0.0), np.minimum(c, f32(limit - 1)))
+        i0 = c.astype(np.int64)
+        return i0, np.minimum(i0 + 1, limit - 1), c - i0.astype(f32)
+
+    y0, y1, wy = taps(nh, h)
+    x0, x1, wx = taps(nw, w)
+    wx, wy = wx[None, :, None], wy[:, None, None]
+    top, bot = frame[y0], frame[y1]  # gather the uint8 taps, then widen
+
+    def tap(rows_, cols):
+        return rows_[:, cols].astype(f32)
+
+    img = ((tap(top, x0) * (f32(1) - wx) + tap(top, x1) * wx) * (f32(1) - wy)
+           + (tap(bot, x0) * (f32(1) - wx) + tap(bot, x1) * wx) * wy)
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+
+    def q(v):  # static_cast<int> truncates toward zero, then the clamp
+        return np.clip(v.astype(np.int32), 0, 255).astype(np.uint8)
+
+    yp = np.full((rows, size), 16, np.uint8)
+    up = np.full((rows // 2, size // 2), 128, np.uint8)
+    vp = np.full((rows // 2, size // 2), 128, np.uint8)
+    yp[oy : oy + nh, ox : ox + nw] = q(
+        f32(0.257) * r + f32(0.504) * g + f32(0.098) * b + f32(16.5))
+    # chroma at the pixels whose full-square row and column are even
+    cy, cx = slice(oy % 2, nh, 2), slice(ox % 2, nw, 2)
+    cb, cg, cr = b[cy, cx], g[cy, cx], r[cy, cx]
+    ry, rx = (oy + oy % 2) // 2, (ox + ox % 2) // 2
+    up[ry : ry + cb.shape[0], rx : rx + cb.shape[1]] = q(
+        -f32(0.148) * cr - f32(0.291) * cg + f32(0.439) * cb + f32(128.5))
+    vp[ry : ry + cb.shape[0], rx : rx + cb.shape[1]] = q(
+        f32(0.439) * cr - f32(0.368) * cg - f32(0.071) * cb + f32(128.5))
+    out = np.concatenate([yp.reshape(-1), up.reshape(-1), vp.reshape(-1)])
+    return out.reshape(rows * 3 // 2, size), s, (ox, oy + (size - rows) // 2)
+
+
+def build_batch_i420(
+    frames: dict, size: int, slots: int | None = None,
+    active_rows: int | None = None,
+) -> tuple[np.ndarray, BatchMeta]:
+    """I420 variant of build_batch — halves the host->device bytes.
+
+    ``active_rows`` ships only that many letterboxed rows per frame (the
+    16:9 active area of a det square); the engine's ingest stage pads the
+    dead rows back on device (black, identical to the host letterbox),
+    cutting upload bytes by rows/size. Meta offsets are in FULL-square
+    coordinates so decode/unmap are unchanged.
+
+    Path selection: cv2 (letterbox + cvtColor) where it is installed, else
+    ``letterbox_i420`` (the JAX package's native packer, in numpy). Device
+    side decodes with ops.image.yuv420_to_rgb (engine fmt="yuv420").
+    """
+    cam_ids = list(frames.keys())
+    b = slots or max(1, len(cam_ids))
+    rows = size if active_rows is None else active_rows
+    assert rows % 16 == 0 and rows <= size, rows
+    oy_pad = (size - rows) // 2  # where the device places the active rows
+    batch = np.zeros((b, rows * 3 // 2, size), np.uint8)
+    batch[:, rows:, :] = 128  # empty slots = black (U=V=128)
+    batch[:, :rows, :] = 16
+    meta = BatchMeta(
+        cam_ids=cam_ids + [None] * (b - len(cam_ids)),
+        scales=np.ones((b,), np.float32),
+        offsets=np.zeros((b, 2), np.float32),
+        frame_ok=np.zeros((b,), bool),
+        orig_hw=[None] * b,
+    )
+    for i, c in enumerate(cam_ids[:b]):
+        frame = frames[c]
+        if frame is None or getattr(frame, "size", 0) == 0:
+            continue
+        if cv2 is not None:
+            boxed, s, (ox, oy) = letterbox(frame, size, rows=rows)
+            batch[i] = cv2.cvtColor(boxed, cv2.COLOR_BGR2YUV_I420)
+            oy += oy_pad
+        else:
+            batch[i], s, (ox, oy) = letterbox_i420(
+                np.ascontiguousarray(frame, dtype=np.uint8), size, rows)
+        meta.scales[i] = s
+        meta.offsets[i] = (ox, oy)
+        meta.frame_ok[i] = True
+        meta.orig_hw[i] = frame.shape[:2]
+    return batch, meta
+
+
+def unmap_results(out: dict, meta: BatchMeta) -> list[dict]:
+    """Convert padded device results into per-camera detection lists with
+    boxes/landmarks back in original frame pixels."""
+    results = []
+    b, m = out["valid"].shape
+    for i in range(b):
+        cam = meta.cam_ids[i] if i < len(meta.cam_ids) else None
+        if cam is None or not meta.frame_ok[i]:
+            continue
+        s = float(meta.scales[i])
+        ox, oy = (float(v) for v in meta.offsets[i])
+        faces = []
+        for j in range(m):
+            if not out["valid"][i, j]:
+                continue
+            box = out["boxes"][i, j].astype(np.float64)
+            box = np.array(
+                [
+                    (box[0] - ox) / s,
+                    (box[1] - oy) / s,
+                    (box[2] - ox) / s,
+                    (box[3] - oy) / s,
+                ]
+            )
+            ldm = out["landmarks"][i, j].reshape(5, 2).astype(np.float64)
+            ldm = (ldm - np.array([ox, oy])) / s
+            face = {
+                "box": box,
+                "landmarks": ldm,
+                "score": float(out["scores"][i, j]),
+                "best_idx": int(out["best_idx"][i, j]),
+                "best_distance": float(out["best_distance"][i, j]),
+                "is_match": bool(out["is_match"][i, j]),
+            }
+            # packed results (engine.submit default / unpack_packed) carry
+            # only the PACKED_LAYOUT columns — embeddings/topk are absent
+            if "embeddings" in out:
+                face["embedding"] = out["embeddings"][i, j]
+            if "topk_idx" in out:
+                face["topk_idx"] = out["topk_idx"][i, j]
+                face["topk_distance"] = out["topk_distance"][i, j]
+            if "fake_prob" in out:
+                face["fake_prob"] = float(out["fake_prob"][i, j])
+            if "quality" in out:
+                face["quality"] = float(out["quality"][i, j])
+            faces.append(face)
+        results.append({"camera_id": cam, "faces": faces})
+    return results
+
+
+# ---------------------------------------------------------------------------
+# change-hint letterboxing: redo only the bands a camera changed
+# ---------------------------------------------------------------------------
+
+class LetterboxCache:
+    """Persistent per-camera letterboxed I420 frame updated from source
+    dirty ROW BANDS (decoder change hints).
+
+    Full letterbox+I420 of 8x1080p is the largest host cost of a scan, while
+    a surveillance tick typically changes a small region per camera. Video
+    decoders know which rows changed (H.264/HEVC macroblock info; the
+    synthetic sources know their sprite rects), so the host can redo only
+    the affected det-space bands: resize the source slab, convert that band,
+    scatter it into the persistent I420 planes.
+
+    Exactness: banded updates are BIT-IDENTICAL to the full path when the
+    decimation stride k = 1/scale is an integer and the frame fills the
+    full letterbox width (1080p->det640: k=3, 720p->det640: k=2 — the
+    serving geometries); bilinear/area sampling for dest row j then reads
+    only source rows [k*j, k*(j+1)), so a slab starting at source row k*j0
+    reproduces the global grid. Any other geometry, a source-shape change,
+    or dirty=None falls back to the full letterbox transparently.
+
+    Hazard (the same class as a delta-transfer desync): hints that
+    UNDER-report changes leave stale pixels in the cache forever — sources
+    must over-report or pass None. update(dirty=None) is always a full
+    rebuild; update(dirty=[]) means "nothing changed". Needs cv2:
+    ``build_batch_i420_cached`` takes the full path without it.
+    """
+
+    def __init__(self, size: int, rows: int | None = None,
+                 buf: np.ndarray | None = None):
+        self.size = int(size)
+        self.rows = int(rows) if rows else int(size)
+        if buf is not None:
+            assert buf.shape == (self.rows * 3 // 2, self.size), buf.shape
+            assert buf.dtype == np.uint8 and buf.flags.c_contiguous
+        # external buf (e.g. a batch slot) makes updates zero-copy: the
+        # cache writes bands straight into the submit buffer
+        self._buf = buf
+        self._i420: np.ndarray | None = None  # [rows*3/2, size] uint8
+        self._src_shape: tuple | None = None
+        self._geo: tuple | None = None  # (scale, ox, oy, nh, k)
+        # bands applied by the LAST update when it took the banded path;
+        # None after a full rebuild (downstream delta hints must then diff
+        # everything — see dirty_blocks)
+        self.last_bands: list | None = None
+
+    @property
+    def frame(self) -> np.ndarray | None:
+        """The cache's own I420 buffer (do NOT mutate)."""
+        return self._i420
+
+    @property
+    def geometry(self) -> tuple | None:
+        """(scale, ox, oy) of the letterbox, as letterbox() returns."""
+        if self._geo is None:
+            return None
+        s, ox, oy, _nh, _k = self._geo
+        return s, (ox, oy)
+
+    def _full(self, frame) -> np.ndarray:
+        boxed, s, (ox, oy) = letterbox(frame, self.size, rows=self.rows)
+        if cv2 is None:  # banded path needs cv2 anyway; full fallback only
+            raise RuntimeError("LetterboxCache requires cv2")
+        conv = cv2.cvtColor(boxed, cv2.COLOR_BGR2YUV_I420)
+        if self._buf is not None:
+            np.copyto(self._buf, conv)
+            self._i420 = self._buf
+        else:
+            self._i420 = conv
+        self.last_bands = None
+        self._src_shape = frame.shape
+        h, w = frame.shape[:2]
+        nh = max(1, int(round(h * s)))
+        k = 1.0 / s
+        exact = (
+            abs(k - round(k)) < 1e-9
+            and max(1, int(round(w * s))) == self.size  # full width, ox == 0
+            and ox == 0
+            and oy % 2 == 0
+            and nh % 2 == 0            # chroma pairs never cross a band edge
+            and h == nh * int(round(k))  # slabs never run short at the tail
+        )
+        self._geo = (s, ox, oy, nh, int(round(k)) if exact else None)
+        return self._i420
+
+    def update(self, frame: np.ndarray, dirty=None) -> np.ndarray:
+        """frame: HxWx3 uint8 BGR; dirty: None = assume everything changed
+        (full rebuild), or iterable of (y0, y1) SOURCE row bands that cover
+        every changed pixel since the previous update. Returns the
+        persistent [rows*3/2, size] I420 frame."""
+        if (
+            dirty is None
+            or self._i420 is None
+            or frame.shape != self._src_shape
+            or self._geo is None
+            or self._geo[4] is None
+        ):
+            return self._full(frame)
+        s, _ox, oy, nh, k = self._geo
+        size, rows = self.size, self.rows
+        out = self._i420
+        flat = out.reshape(-1)
+        u_base = rows * size
+        v_base = u_base + (rows // 2) * (size // 2)
+        h = frame.shape[0]
+        interp = (cv2.INTER_AREA if _resize_interp() == "area"
+                  else cv2.INTER_LINEAR) if s < 1.0 else cv2.INTER_LINEAR
+        for band in dirty:
+            y0, y1 = int(band[0]), int(band[1])
+            if y1 <= y0:
+                continue
+            j0, j1 = self._dest_band(y0, y1, nh, k)
+            if j1 <= j0:
+                continue
+            slab = frame[j0 * k : min(h, j1 * k)]
+            band_bgr = cv2.resize(slab, (size, j1 - j0), interpolation=interp)
+            conv = cv2.cvtColor(band_bgr, cv2.COLOR_BGR2YUV_I420).reshape(-1)
+            bh = j1 - j0
+            # Y
+            out[oy + j0 : oy + j1] = conv[: bh * size].reshape(bh, size)
+            # U and V planes: contiguous flat runs in both buffers
+            uq = (size // 2)
+            cu0, cu1 = bh * size, bh * size + (bh // 2) * uq
+            du0 = u_base + ((oy + j0) // 2) * uq
+            flat[du0 : du0 + (bh // 2) * uq] = conv[cu0:cu1]
+            dv0 = v_base + ((oy + j0) // 2) * uq
+            flat[dv0 : dv0 + (bh // 2) * uq] = conv[cu1 : cu1 + (bh // 2) * uq]
+        self.last_bands = [tuple(band) for band in dirty]
+        return out
+
+    @staticmethod
+    def _dest_band(y0: int, y1: int, nh: int, k: int) -> tuple[int, int]:
+        """Dest rows a source row band [y0, y1) influences — one-row slop on
+        each side (cheap), snapped to even for the 2x2 chroma average."""
+        j0 = max(0, (y0 // k - 1)) & ~1
+        j1 = min(nh, -(-(y1 + k) // k) + 1)
+        j1 = min(nh, (j1 + 1) & ~1)
+        return j0, j1
+
+    def banded_capable(self, frame) -> bool:
+        """True when update(frame, dirty=...) would take the banded path."""
+        return (
+            self._i420 is not None
+            and frame.shape == self._src_shape
+            and self._geo is not None
+            and self._geo[4] is not None
+        )
+
+    def dirty_blocks(self, block_bytes: int, bands: list | None = None):
+        """Half-open (b0, b1) BLOCK ranges in the flattened I420 frame that
+        cover the given source row bands (default: the LAST update's bands)
+        — the delta-encoder hint for this frame. Returns None when the last
+        update was a full rebuild or banded geometry is unavailable (the
+        encoder must then diff every block)."""
+        bands = self.last_bands if bands is None else bands
+        if bands is None or self._geo is None or self._geo[4] is None:
+            return None
+        s, _ox, oy, nh, k = self._geo
+        size, rows = self.size, self.rows
+        u_base = rows * size
+        v_base = u_base + (rows // 2) * (size // 2)
+        out = []
+        for y0, y1 in bands:
+            j0, j1 = self._dest_band(int(y0), int(y1), nh, k)
+            if j1 <= j0:
+                continue
+            uq = size // 2
+            spans = (
+                ((oy + j0) * size, (oy + j1) * size),
+                (u_base + ((oy + j0) // 2) * uq,
+                 u_base + ((oy + j1) // 2) * uq),
+                (v_base + ((oy + j0) // 2) * uq,
+                 v_base + ((oy + j1) // 2) * uq),
+            )
+            out.extend(
+                (a // block_bytes, -(-z // block_bytes)) for a, z in spans
+            )
+        return out
+
+
+class SourceChangeDetector:
+    """Change hints for sources that can't provide them. The JAX package's
+    detector diffs the raw frame against its previous copy with a native
+    memcmp kernel and turns itself off when that library is missing. The
+    port has no native library, and a numpy diff (a full-frame temporary a
+    camera a scan) is not known to cost less than the letterbox it would
+    save, so the detector is always off: ``hints`` returns None and
+    build_batch_i420_cached letterboxes a hintless camera's whole frame, as
+    the JAX package does without its library."""
+
+    def __init__(self, band: int = 16):
+        self.band = int(band)
+
+    def hints(self, frame: np.ndarray) -> None:
+        return None
+
+
+def build_batch_i420_cached(
+    frames: dict, size: int, state: dict, hints: dict | None = None,
+    slots: int | None = None, active_rows: int | None = None,
+) -> tuple[np.ndarray, BatchMeta]:
+    """build_batch_i420 with per-camera LetterboxCaches persisted in
+    ``state`` (an empty dict on first call, owned by the caller — the scan
+    loop keeps one per router): cameras whose sources provide change hints
+    ({cam_id: [(y0, y1), ...]}) re-letterbox only those source bands into
+    their persistent batch slot. Any change to the camera set, slot layout,
+    or active-rows rung rebuilds the state transparently (that scan runs
+    the full path). Returns the PERSISTENT batch buffer — callers must
+    finish reading it (encode/upload) before the next call. Without cv2 it
+    is build_batch_i420, and ``state`` stays empty."""
+    cam_ids = list(frames.keys())
+    b = slots or max(1, len(cam_ids))
+    rows = size if active_rows is None else active_rows
+    assert rows % 16 == 0 and rows <= size, rows
+    if cv2 is None:
+        return build_batch_i420(frames, size, slots=slots,
+                                active_rows=active_rows)
+    key = (tuple(cam_ids), b, rows, size)
+    if state.get("key") != key:
+        batch = np.zeros((b, rows * 3 // 2, size), np.uint8)
+        batch[:, :rows, :] = 16
+        batch[:, rows:, :] = 128
+        state.clear()
+        state.update(
+            key=key, batch=batch,
+            caches={c: LetterboxCache(size, rows, buf=batch[i])
+                    for i, c in enumerate(cam_ids[:b])},
+            live=set(),
+        )
+    batch = state["batch"]
+    # per-slot delta-hint status for this scan: None = content changed
+    # unpredictably (full diff), [] = slot untouched, cam_id = banded
+    # update (resolve via delta_hints_for). A state reset rewrote every
+    # slot -> the default [] below only survives for slots not touched
+    # this scan AFTER at least one build, which is exactly when it's true.
+    slot_status: list = ([None] * b if "slot_status" not in state
+                         else [[] for _ in range(b)])
+    state["slot_status"] = slot_status
+    oy_pad = (size - rows) // 2
+    meta = BatchMeta(
+        cam_ids=cam_ids + [None] * (b - len(cam_ids)),
+        scales=np.ones((b,), np.float32),
+        offsets=np.zeros((b, 2), np.float32),
+        frame_ok=np.zeros((b,), bool),
+        orig_hw=[None] * b,
+    )
+    for i, cam in enumerate(cam_ids[:b]):
+        frame = frames[cam]
+        if frame is None or getattr(frame, "size", 0) == 0:
+            if cam in state["live"]:
+                # blank the stale slot; the cache content no longer matches
+                # its buffer, so force a rebuild on the camera's return
+                batch[i, :rows, :] = 16
+                batch[i, rows:, :] = 128
+                state["caches"][cam] = LetterboxCache(size, rows, buf=batch[i])
+                state["live"].discard(cam)
+                slot_status[i] = None  # slot content changed (blanked)
+            continue
+        dirty = None if hints is None else hints.get(cam)
+        if dirty is None and state["caches"][cam].banded_capable(frame):
+            # hintless source: the change detector's hints (always None in
+            # the port, a full re-letterbox; see SourceChangeDetector)
+            det = state.setdefault("detectors", {}).setdefault(
+                cam, SourceChangeDetector()
+            )
+            dirty = det.hints(frame)
+        state["caches"][cam].update(frame, dirty)
+        slot_status[i] = (cam if state["caches"][cam].last_bands is not None
+                          else None)
+        s, (ox, oy) = state["caches"][cam].geometry
+        meta.scales[i] = s
+        meta.offsets[i] = (ox, oy + oy_pad)
+        meta.frame_ok[i] = True
+        meta.orig_hw[i] = frame.shape[:2]
+        state["live"].add(cam)
+    return batch, meta
+
+
+def delta_hints_for(state: dict, block_bytes: int) -> list | None:
+    """Per-slot block hints for DeltaEncoder.encode(batch, hints=...) on the
+    batch build_batch_i420_cached just produced from ``state``: [] for
+    untouched slots, block ranges for banded updates, None for slots whose
+    content changed unpredictably (full rebuild / blanking / reset)."""
+    statuses = state.get("slot_status")
+    if statuses is None:
+        return None
+    caches = state.get("caches", {})
+    out = []
+    for status in statuses:
+        if status is None or isinstance(status, list):
+            out.append(status)
+        else:  # cam id -> banded update; resolve to block ranges
+            out.append(caches[status].dirty_blocks(block_bytes))
+    return out
 
 
 # ---------------------------------------------------------------------------

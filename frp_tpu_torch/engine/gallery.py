@@ -109,12 +109,55 @@ class DeviceGallery:
             self._device = None
             self._version += 1
 
-    def device_view(self):
-        """(matrix [capacity, D], valid [capacity], names) — the names list
-        is positionally tied to these exact device tensors: resolve match
-        indices of an in-flight batch against it, never against live state
-        (swap-remove reassigns slots). The tensors are copies, so later
-        edits of the host arrays never reach a batch already submitted."""
+    def load_entries(self, entries: dict) -> int:
+        """Bulk hydrate {name: embedding} (startup path)."""
+        count = 0
+        for name, emb in entries.items():
+            try:
+                self.add(name, emb)
+                count += 1
+            except (ValueError, TypeError):
+                continue
+        return count
+
+    def load_matrix(self, names: list[str], matrix: np.ndarray) -> int:
+        """Vectorized bulk hydrate from a [N, D] matrix — the per-entry path
+        costs a Python iteration per identity, which matters at large gallery
+        sizes. New names only; rows whose name already exists are skipped
+        (use add() to overwrite)."""
+        m = np.asarray(matrix, np.float32)
+        if m.ndim != 2 or m.shape[1] != self.embed_dim:
+            raise ValueError(f"matrix shape {m.shape} != [N, {self.embed_dim}]")
+        if len(names) != m.shape[0]:
+            raise ValueError("names/matrix length mismatch")
+        with self._lock:
+            seen: set = set()
+            fresh = []
+            for i, n in enumerate(names):
+                # skip names already enrolled AND duplicates within the batch
+                # (two live rows under one name would orphan one on remove)
+                if n in self._index or n in seen:
+                    continue
+                seen.add(n)
+                fresh.append((n, i))
+            if not fresh:
+                return 0
+            base = len(self._names)
+            self._grow(base + len(fresh))
+            rows = np.fromiter((i for _, i in fresh), np.int64, len(fresh))
+            self._host[base : base + len(fresh)] = m[rows]
+            self._valid[base : base + len(fresh)] = True
+            for k, (n, _) in enumerate(fresh):
+                self._names.append(n)
+                self._index[n] = base + k
+            self._device = None
+            self._version += 1
+            return len(fresh)
+
+    def device_arrays(self):
+        """(matrix [capacity, D], valid [capacity]) as tensors on the
+        gallery's device. They are copies, so later edits of the host arrays
+        never reach a batch already submitted."""
         with self._lock:
             if self._device is None:
                 self._device = (
@@ -122,7 +165,22 @@ class DeviceGallery:
                     torch.from_numpy(self._valid.copy()).to(self.device),
                 )
                 self._device_names = list(self._names)
-            return (*self._device, self._device_names)
+            return self._device
+
+    def device_view(self):
+        """(matrix, valid, names) — the names list is positionally tied to
+        these exact device tensors: resolve match indices of an in-flight
+        batch against it, never against live state (swap-remove reassigns
+        slots)."""
+        with self._lock:
+            mat, valid = self.device_arrays()
+            return mat, valid, self._device_names
+
+    def host_arrays(self):
+        """(matrix [N, D] of the enrolled rows, names), host copies."""
+        with self._lock:
+            n = len(self._names)
+            return self._host[:n].copy(), list(self._names)
 
     def name_of(self, idx: int) -> str | None:
         with self._lock:

@@ -23,8 +23,8 @@ frame with validity masks.
 
 Not ported yet (ROADMAP): ONNX/.pth import, mesh sharding, iresnet
 training, ``build_pipeline``'s ``with_spoof=False``, ``with_quality=False``
-and ``spoof_size``, and the engine options no caller of the port sets
-(``submit(packed=False)``, ``with_spoof=False``).
+and ``spoof_size``, and the engine's ``with_spoof=False``, which no caller
+of the port sets.
 """
 
 from __future__ import annotations
@@ -397,6 +397,25 @@ def unpack_packed(arr: np.ndarray) -> dict:
     return out
 
 
+def to_host(tensors: list) -> list:
+    """numpy copies of ``tensors`` with ONE device-to-host copy: their bytes
+    are joined on the device first, the widest elements first so that every
+    array lands aligned in the joined buffer."""
+    if not tensors:
+        return []
+    order = sorted(range(len(tensors)), key=lambda i: -tensors[i].element_size())
+    flat = [tensors[i].contiguous().reshape(-1).view(torch.uint8) for i in order]
+    host = torch.cat(flat).cpu().numpy()
+    out: list = [None] * len(tensors)
+    at = 0
+    for i, f in zip(order, flat):
+        t, n = tensors[i], f.numel()
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out[i] = host[at : at + n].view(dtype).reshape(tuple(t.shape))
+        at += n
+    return out
+
+
 @dataclass
 class EngineMetrics:
     """Reference-parity runtime counters (face_service.py:67-77 semantics)."""
@@ -655,10 +674,11 @@ class RecognitionEngine:
     # -- main entry -------------------------------------------------------
     @torch.no_grad()
     def process_frames(self, frames: np.ndarray, tolerance: float | None = None,
-                       fmt: str = "rgb"):
+                       fmt: str = "rgb", record_metrics: bool = True):
         """frames: [B, H, W, 3] uint8 RGB, or [B, H*3//2, W] uint8 I420 with
         fmt="yuv420". Returns a host dict of numpy arrays (padded slots +
-        masks), embeddings and top-k included."""
+        masks), embeddings and top-k included. ``record_metrics=False``
+        leaves the engine's counters alone (warmup)."""
         tolerance = self.cfg.face_tolerance if tolerance is None else tolerance
         frames = np.ascontiguousarray(frames, dtype=np.uint8)
         if frames.ndim == 3 and fmt == "rgb":
@@ -666,13 +686,15 @@ class RecognitionEngine:
         b = frames.shape[0]
         t0 = time.perf_counter()
         out, gal_names = self._run_stages(self._upload(frames), tolerance, fmt, packed=False)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        out = dict(zip(out.keys(), to_host(list(out.values()))))
         out["gallery_names"] = gal_names
         dt = time.perf_counter() - t0
-        self._record(b, out["count"], dt)
+        if record_metrics:
+            self._record(b, out["count"], dt)
         out["processing_time"] = dt
         return out
 
+    @torch.no_grad()
     def encode_image(self, image: np.ndarray):
         """Detect + embed one RGB image of any geometry (enrolment). Returns a
         list of face dicts (embedding, box, landmarks, score, quality,
@@ -705,26 +727,38 @@ class RecognitionEngine:
         return faces
 
     @torch.no_grad()
+    def warmup(self, batch: int, h: int | None = None, w: int | None = None):
+        """Run one batch of black RGB frames [batch, h, w, 3] (det square by
+        default) through every stage before serving, without touching the
+        counters: on the card the first call builds the kernels (nvcc) and
+        picks cuDNN's algorithms. A failure raises."""
+        h = h or self.cfg.det_size
+        w = w or self.cfg.det_size
+        self.process_frames(np.zeros((batch, h, w, 3), np.uint8), record_metrics=False)
+
+    @torch.no_grad()
     def submit(self, frames: np.ndarray, tolerance: float | None = None,
-               fmt: str = "rgb"):
+               fmt: str = "rgb", packed: bool = True):
         """Queue a batch on the device without waiting; returns a handle for
-        fetch(), which unpacks the [B, M, 22] layout."""
+        fetch(). With ``packed`` (default) the result is the [B, M, 22]
+        layout, one device-to-host copy a fetch; ``packed=False`` keeps every
+        output, embeddings and top-k included."""
         tolerance = self.cfg.face_tolerance if tolerance is None else tolerance
         frames = np.ascontiguousarray(frames, dtype=np.uint8)
         if frames.ndim == 3 and fmt == "rgb":
             frames = frames[None]
-        out, gal_names = self._run_stages(self._upload(frames), tolerance, fmt)
-        return out, frames.shape[0], gal_names, time.perf_counter()
+        out, gal_names = self._run_stages(self._upload(frames), tolerance, fmt, packed)
+        return out, frames.shape[0], packed, gal_names, time.perf_counter()
 
     @torch.no_grad()
-    def submit_encoded(self, enc, tolerance: float | None = None):
+    def submit_encoded(self, enc, tolerance: float | None = None, packed: bool = True):
         """Submit a DeltaEncoder.encode() payload. "raw" keyframes upload the
         full I420 batch and become the resident batch; "delta" payloads ship
         only changed blocks, which the delta stage scatters onto the resident
         batch (bit-exact). A tagged delta must continue the exact payload
         stream the resident batch came from, or it raises. Takes
-        ``put_payload``'s payloads without another copy. Returns a fetch() /
-        fetch_many() handle."""
+        ``put_payload``'s payloads without another copy. ``packed`` as in
+        ``submit``. Returns a fetch() / fetch_many() handle."""
         tolerance = self.cfg.face_tolerance if tolerance is None else tolerance
         tag = (enc.enc_id, enc.seq) if hasattr(enc, "enc_id") and hasattr(enc, "seq") else None
         self._mark("start")
@@ -737,8 +771,8 @@ class RecognitionEngine:
             self._delta_prev = frames_dev
             if tag is not None:
                 self._delta_src = tag
-            out, gal_names = self._run_stages(frames_dev, tolerance, "yuv420")
-            return out, int(frames_dev.shape[0]), gal_names, time.perf_counter()
+            out, gal_names = self._run_stages(frames_dev, tolerance, "yuv420", packed)
+            return out, int(frames_dev.shape[0]), packed, gal_names, time.perf_counter()
         _, idx, blocks = enc
         if self._delta_prev is None:
             raise RuntimeError(
@@ -764,9 +798,10 @@ class RecognitionEngine:
         self._delta_prev = new_prev
         if tag is not None:
             self._delta_src = tag
-        out, gal_names = self._run_stages(rgb_dev, tolerance, "rgb")
-        return out, int(rgb_dev.shape[0]), gal_names, time.perf_counter()
+        out, gal_names = self._run_stages(rgb_dev, tolerance, "rgb", packed)
+        return out, int(rgb_dev.shape[0]), packed, gal_names, time.perf_counter()
 
+    @torch.no_grad()
     def put_payload(self, enc):
         """Upload a DeltaEncoder payload's arrays to the engine's device ahead
         of ``submit_encoded``, keeping its (enc_id, seq) tag; returns a
@@ -821,28 +856,28 @@ class RecognitionEngine:
             done += 1
         return done
 
+    @torch.no_grad()
     def fetch(self, handle):
-        """Wait for a submit() handle and return host-side results."""
-        out, b, gal_names, t_submit = handle
-        out = unpack_packed(out.cpu().numpy())
-        out["gallery_names"] = gal_names
-        self._record(b, out["count"], time.perf_counter() - t_submit)
-        return out
+        """Wait for a submit() handle and return host-side results: the
+        unpacked [B, M, 22] layout, or with packed=False every output as a
+        numpy array; both carry ``gallery_names``. One device-to-host copy
+        either way."""
+        return self.fetch_many([handle])[0]
 
+    @torch.no_grad()
     def fetch_many(self, handles: list) -> list:
-        """Fetch a group of submit() handles with ONE device-to-host copy (the
-        packed results joined on the device first). Returns the host-side
-        result dicts in submission order."""
+        """Fetch a group of submit() handles, packed or not, with ONE
+        device-to-host copy (``to_host``). Returns the host-side result dicts
+        in submission order."""
         if not handles:
             return []
-        outs = [h[0] for h in handles]
-        host = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
+        leaves = [[o] if is_packed else list(o.values()) for o, _, is_packed, _, _ in handles]
+        host = iter(to_host([t for group in leaves for t in group]))
         now = time.perf_counter()
-        results, at = [], 0
-        for o, (_, b, gal_names, t_submit) in zip(outs, handles):
-            n = o.numel()
-            out = unpack_packed(host[at : at + n].reshape(tuple(o.shape)))
-            at += n
+        results = []
+        for (o, b, is_packed, gal_names, t_submit), group in zip(handles, leaves):
+            arrays = [next(host) for _ in group]
+            out = unpack_packed(arrays[0]) if is_packed else dict(zip(o.keys(), arrays))
             out["gallery_names"] = gal_names
             self._record(b, out["count"], max(0.0, now - t_submit))
             results.append(out)

@@ -2,10 +2,13 @@
 distances through one matrix product, and an exact top-k whose tie order is
 ``lax.top_k``'s (lower gallery index first). The JAX package's two-stage
 chunked top-k for large galleries (``_exact_topk``) works around the TPU's
-``lax.top_k``; here one stable sort gives the same answer."""
+``lax.top_k``; here one stable sort gives the same answer. The host-side
+confidence helpers the platform's face service and alerts use are copied
+as they are."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from frp_tpu_torch.ops.topk import top_k as _top_k
@@ -44,3 +47,32 @@ def gallery_match(
         "topk_idx": top_idx,
         "topk_distance": -neg_top,
     }
+
+
+# ---------------------------------------------------------------------------
+# Host-side calibration helpers (exact reference formulas; cheap scalar math)
+# ---------------------------------------------------------------------------
+
+def confidence_level(distance: float) -> str:
+    """Reference ``face_service.py:486-492``."""
+    if distance < 0.4:
+        return "high"
+    if distance < 0.6:
+        return "medium"
+    return "low"
+
+
+def calibrate_confidence(distance: float) -> float:
+    """Reference ``face_service.py:497-506``: sigmoid k=12 centered at 0.5."""
+    x = max(0.0, min(1.0, 1.0 - float(distance)))
+    return round(float(100.0 / (1.0 + np.exp(-12.0 * (x - 0.5)))), 2)
+
+
+def find_k_nearest(distances: np.ndarray, k: int) -> np.ndarray:
+    """Indices of the k smallest distances, ascending (reference
+    ``face_service.py:590-612`` argpartition+sort semantics)."""
+    k = min(k, len(distances))
+    if k <= 0:
+        return np.array([], dtype=np.int64)
+    idx = np.argpartition(distances, k - 1)[:k]
+    return idx[np.argsort(distances[idx])]

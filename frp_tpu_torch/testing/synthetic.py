@@ -1,6 +1,7 @@
-"""Synthetic face scenes for the port's smoke run and tests: a numpy copy of
-``make_scene`` (frontal domain) and ``render_face`` from
-``frp_tpu/train/synthetic.py``, the parts that run without cv2.
+"""Synthetic face scenes for the port's smoke run, tests and synthetic camera
+sources: a numpy copy of ``make_scene`` (frontal domain), ``make_identity``
+and ``render_face`` from ``frp_tpu/train/synthetic.py``, the parts that run
+without cv2.
 
 Scenes are RGB: a skin-tone ellipse head with two dark eyes, a nose point
 and a mouth bar over a textured or plain background. The shipped detector
@@ -13,11 +14,34 @@ from __future__ import annotations
 import numpy as np
 
 
+def make_identity(seed: int) -> dict:
+    """Stable per-person render parameters — the 'identity' an embedder can
+    learn to separate: skin tone + facial geometry ratios."""
+    rng = np.random.default_rng(seed)
+    return {
+        "skin": np.array(
+            [rng.integers(140, 230), rng.integers(100, 190), rng.integers(80, 170)]
+        ),
+        "eye_dx": float(rng.uniform(0.13, 0.23)),
+        "eye_dy": float(rng.uniform(0.08, 0.16)),
+        "eye_r": float(rng.uniform(0.035, 0.065)),
+        "eye_color": np.array([rng.integers(10, 60)] * 2 + [rng.integers(20, 90)]),
+        "mouth_w": float(rng.uniform(0.09, 0.17)),
+        "mouth_y": float(rng.uniform(0.18, 0.26)),
+        "mouth_color": np.array(
+            [rng.integers(40, 90), rng.integers(20, 60), rng.integers(80, 150)]
+        ),
+        "head_ax": float(rng.uniform(0.38, 0.46)),
+        "head_ay": float(rng.uniform(0.50, 0.60)),
+    }
+
+
 def render_face(
     canvas: np.ndarray, cx, cy, size, rng,
     identity: dict | None = None,
     pose: tuple | None = None,
     occlusion: float = 0.0,
+    origin: tuple = (0, 0),
 ):
     """Draw one synthetic face; returns (bbox xyxy px, landmarks 10 px).
 
@@ -29,15 +53,21 @@ def render_face(
     geometry a rotated real head projects to). ``occlusion`` > 0 covers that
     fraction of the face box with an opaque patch (scarf/pole/hand stand-in);
     landmarks still report the unoccluded positions, as real annotations do.
-    ``pose=None`` is byte-identical to the round-2 frontal renderer."""
+    ``pose=None`` is byte-identical to the round-2 frontal renderer.
+
+    ``origin`` (x, y) says where ``canvas`` sits in a larger frame whose
+    coordinates ``cx``, ``cy`` and the results are in: a window of the frame
+    that holds the whole face renders the same bytes as the whole frame, at
+    the window's cost (the sample grid holds the frame's own coordinates)."""
     h, w = canvas.shape[:2]
+    gx, gy = origin
     ident = identity or {}
     yaw, pitch, roll = pose if pose is not None else (0.0, 0.0, 0.0)
     cyaw, cpitch = np.cos(yaw), np.cos(pitch)
     sroll, croll = np.sin(roll), np.cos(roll)
     ax = size * ident.get("head_ax", 0.42) * (0.70 + 0.30 * cyaw)
     ay = size * ident.get("head_ay", 0.55) * (0.88 + 0.12 * cpitch)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    yy, xx = np.mgrid[gy : gy + h, gx : gx + w].astype(np.float32)
     # head ellipse in roll-rotated coordinates
     u = (xx - cx) * croll + (yy - cy) * sroll
     v = -(xx - cx) * sroll + (yy - cy) * croll
@@ -96,8 +126,8 @@ def render_face(
         oh = max(2.0, area / ow)
         ox = float(rng.uniform(cx - bx, cx + bx - ow * 0.5))
         oy = float(rng.uniform(cy - by, cy + by - oh * 0.5))
-        x0, x1 = max(0, int(ox)), min(w, int(ox + ow))
-        y0, y1 = max(0, int(oy)), min(h, int(oy + oh))
+        x0, x1 = max(0, int(ox) - gx), min(w, int(ox + ow) - gx)
+        y0, y1 = max(0, int(oy) - gy), min(h, int(oy + oh) - gy)
         if x1 > x0 and y1 > y0:
             shade = rng.integers(0, 90) if rng.random() < 0.7 else rng.integers(160, 255)
             canvas[y0:y1, x0:x1] = np.clip(

@@ -185,13 +185,24 @@ def test_port_imports_no_jax_nor_frp_tpu():
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'frp_tpu')]\n"
-        "print(len([n for n in sys.modules if n.startswith('frp_tpu_torch.')]), bad)\n"
+        "mods = [n for n in sys.modules if n.startswith('frp_tpu_torch.')]\n"
+        "print(len(mods), bad)\n"
         "assert not bad, bad\n"
+        # the serving platform's subpackages are among what was imported
+        "for sub in ('api', 'api.routes', 'platform', 'utils'):\n"
+        "    assert [n for n in mods if n.startswith('frp_tpu_torch.' + sub + '.')], sub\n"
+        "for n in ('api.main', 'api.http', 'api.socketio', 'api.routes.camera',\n"
+        "          'api.routes.face', 'api.routes.alerts', 'platform.context',\n"
+        "          'platform.face_service', 'platform.state', 'platform.tracking',\n"
+        "          'platform.alerts', 'platform.health', 'platform.schemas',\n"
+        "          'platform.dbops', 'utils.docstore', 'utils.crypto',\n"
+        "          'utils.thumbnail_cache', 'utils.profiling', 'utils.logger'):\n"
+        "    assert 'frp_tpu_torch.' + n in mods, n\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 20
+    assert int(res.stdout.split()[0]) >= 45
 
 
 def test_plain_path_launches_nothing_and_wrappers_never_fall_back():

@@ -96,6 +96,27 @@ def test_pipelined_phase_runs_on_the_cpu(smoke):
     assert all(err == 0.0 for err in out["max_abs_err"].values())
 
 
+def test_platform_phase_runs_on_the_cpu(smoke, monkeypatch):
+    """Phase 10 at det 192 on the CPU, 2 synthetic 192x192 cameras: every scan
+    over the socket scans both cameras and matches the enrolled face on
+    camera 0, alerts and tracking records land in the store, deltas flow
+    without a desync; the parity half runs two CPU contexts (the launch
+    counts and device times need the card)."""
+    monkeypatch.setattr(smoke, "PLATFORM_CAMERAS", 2)
+    monkeypatch.setattr(smoke, "PLATFORM_SOURCE", (192, 192))
+    kw = dict(det_size=192, max_faces_per_frame=4, pre_nms_topk=64, det_conf_threshold=0.3,
+              compute_dtype="float32", min_face_quality=0.0)
+    dev = torch.device("cpu")
+    out = smoke.run_platform(dev, 3, **kw)
+    assert out["requests"] == 3 and out["min_faces"] > 0 and out["device_ms"] is None
+    assert out["camera0_distance"][1] <= out["tolerance"]
+    assert out["tracking"] and out["alerts"] and out["pushed"]
+    assert out["delta"]["deltas"] > 0 and out["delta"]["desyncs"] == 0 and out["payload_kb"] > 0
+    assert {"read", "letterbox", "encode", "submit", "fetch", "track"} <= set(out["parts_ms"])
+    par = smoke.run_platform_parity(dev, **kw)
+    assert par["detections"] > 0 and all(err == 0.0 for err in par["max_abs_err"].values())
+
+
 def test_embed_bound_counts_the_rung(smoke, monkeypatch):
     """The embed stage's FLOPs and bytes at det 128 on 16 frames x 4 slots
     follow the rung compaction picks, against the engine built with
