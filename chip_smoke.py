@@ -82,9 +82,39 @@ Phases, each printed on its own lines, in order:
             the same cameras through a cuda and a cpu context, both at f32
             (TF32 off), 2 scans each: the same targets and cameras, valid,
             count and best_idx bit for bit, boxes within 1e-2 px.
+11. services the rest of the platform on phase 10's app (a new one: the
+            default config, the 8 cameras), served over the socket: POST
+            /deepfake/detect with a 1920x1080 MJPG clip of 60 frames, one
+            moving rendered face, gone from 10 of them (a 12-frame clip
+            first warms the chunk shapes up): 20 sampled, frames with a face
+            as rendered, kernels 1 and 2 once a chunk (8, 8, 4); the same
+            bytes again are served from the cache with no launch; POST
+            /deepfake/detect-image; GET /deepfake/cctv?max_frames=3; POST
+            /async/face/search with camera 0's enrolled frame, polled until
+            it names the enrolled face; two FL clients and the aggregate,
+            equal to the numpy mean bit for bit; the snapshot (200 with an
+            ETag, then 304), /app and /dashboard. Prints the video's ms on
+            the host clock (read and seek, letterbox, engine), the device ms
+            a chunk, ms a sampled frame, the CCTV sweep's ms, and the ms to
+            read the sampled frames by seeking with cv2's MJPEG backend and
+            the whole clip in order with the default one (the service's
+            seeks must give the in-order read's frames bit for bit). Then the
+            video at f32 (TF32 off) on cuda and on the CPU: every sampled
+            frame's face count, fake_prob within 1e-3, boxes within 1e-2 px,
+            the same verdict. Last, the default bf16 engine on cuda against
+            the CPU engine at bf16 on the rendered scenes and the sampled
+            frames: valid and count equal; a face agrees when its box is
+            within 1 px, its embedding at cosine >= 0.99 and its fake_prob
+            within 0.02; every face whose kept anchor is the same on both
+            must agree, and one whose kept anchor differs must be a near tie
+            (the two anchors' CPU scores within 2e-4: bf16 rounding flips
+            which one greedy suppression keeps) with fake_prob within 0.02;
+            best_idx equal on agreeing faces where the CPU's two nearest
+            entries are 0.05 apart; no per-frame verdict flips. The counts
+            of each are printed.
 
-Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9
-and 10 and read just after. Any failed check raises, so the run exits
+Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9,
+10 and 11 and read just after. Any failed check raises, so the run exits
 non-zero. The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
@@ -114,6 +144,7 @@ from frp_tpu_torch.api.http import HTTPServer
 from frp_tpu_torch.api.main import build_app
 from frp_tpu_torch.api.socketio import read_frame
 from frp_tpu_torch.config import load_config
+from frp_tpu_torch.engine import batching
 from frp_tpu_torch.engine.batching import DeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline, embed_compact_rungs
 from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, nms_cuda
@@ -125,7 +156,7 @@ from frp_tpu_torch.ops.topk import top_k
 from frp_tpu_torch.platform.context import AppContext
 from frp_tpu_torch.platform.state import SyntheticSource
 from frp_tpu_torch.testing.payloads import crowd_payload
-from frp_tpu_torch.testing.synthetic import make_scene
+from frp_tpu_torch.testing.synthetic import make_scene, write_face_clip
 
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -161,8 +192,7 @@ def say(phase: str, text: str) -> None:
 
 def rgb_to_i420(rgb: np.ndarray) -> np.ndarray:
     """[H, W, 3] uint8 RGB -> [H*3//2, W] uint8 I420: BT.601 studio swing and
-    the plane layout of cv2's COLOR_BGR2YUV_I420, chroma as the 2x2 mean
-    (the card machine has no cv2)."""
+    the plane layout of cv2's COLOR_BGR2YUV_I420, chroma as the 2x2 mean."""
     f = rgb.astype(np.float32)
     r, g, b = f[..., 0], f[..., 1], f[..., 2]
     y = 16.0 + 0.257 * r + 0.504 * g + 0.098 * b
@@ -962,18 +992,29 @@ def start_server(router, sio):
     return bound["port"], stop
 
 
-async def http_get(port: int, path: str) -> tuple[int, dict]:
+async def http_call(port: int, method: str, path: str, body: bytes = b"",
+                    headers: dict | None = None) -> tuple[int, dict, bytes]:
+    """One HTTP/1.1 request to the server on 127.0.0.1:port; returns (status,
+    headers with lower-case names, body)."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
-    writer.write(f"GET {path} HTTP/1.1\r\nHost: localhost\r\n\r\n".encode())
+    head = {"Host": "localhost", **(headers or {})}
+    if body:
+        head["Content-Length"] = str(len(body))
+    writer.write((f"{method} {path} HTTP/1.1\r\n"
+                  + "".join(f"{k}: {v}\r\n" for k, v in head.items())).encode() + b"\r\n" + body)
     await writer.drain()
     status = int((await reader.readline()).split()[1])
-    length = 0
+    got = {}
     while (line := await reader.readline()) not in (b"\r\n", b""):
         k, v = line.decode().split(":", 1)
-        if k.strip().lower() == "content-length":
-            length = int(v)
-    body = await reader.readexactly(length)
+        got[k.strip().lower()] = v.strip()
+    data = await reader.readexactly(int(got.get("content-length", 0)))
     writer.close()
+    return status, got, data
+
+
+async def http_get(port: int, path: str) -> tuple[int, dict]:
+    status, _, body = await http_call(port, "GET", path)
     return status, json.loads(body)
 
 
@@ -1167,6 +1208,436 @@ def run_platform_parity(dev, scans: int = 2, **overrides) -> dict:
     return dict(scans=scans, detections=len(res[0][-1]["detections"]), max_abs_err=errs)
 
 
+# --- phase 11: the rest of the platform -------------------------------------------
+
+VIDEO_SIZE = (1920, 1080)
+VIDEO_FRAMES = 60  # 20 sampled: chunks of 8, 8 and 4
+WARM_FRAMES = 12  # all sampled: chunks of 8 and 4, the same shapes
+CCTV_FRAMES = 3
+FL_LAYERS = {"conv": (3, 3, 16, 32), "fc": (128, 10), "bias": (10,)}
+
+
+def multipart(fields: dict, files: dict) -> tuple[bytes, dict]:
+    """A multipart/form-data body and its Content-Type header; `files` maps a
+    field to (filename, bytes, content type)."""
+    boundary = "chipsmokeboundary"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    for k, (name, data, ctype) in files.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"; '
+                     f'filename="{name}"\r\nContent-Type: {ctype}\r\n\r\n'.encode() + data + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def post_file(port: int, path: str, name: str, data: bytes, ctype: str) -> tuple[int, dict]:
+    body, headers = multipart({}, {"file": (name, data, ctype)})
+    status, _, got = asyncio.run(http_call(port, "POST", path, body, headers))
+    return status, json.loads(got)
+
+
+def instrument_deepfake(svc, eng) -> tuple[dict, callable]:
+    """Record the deepfake path's parts on the host clock: "read" (from the
+    probe to the classification: probe, seek and decode), "letterbox" (each
+    build_batch_i420), "engine" (each process_frames, which also marks a
+    "start" stage event) and every classify_frames call's frames and
+    results. Returns the record and a function that undoes the wrapping."""
+    rec: dict = {k: [] for k in ("read", "letterbox", "engine", "frames", "results")}
+    probe, classify, process = svc.probe_video, svc.classify_frames, eng.process_frames
+    letterbox = batching.build_batch_i420
+    started: dict = {}
+
+    def probe_video(path):
+        started["t"] = time.perf_counter()
+        return probe(path)
+
+    def classify_frames(frames):
+        if "t" in started:
+            rec["read"].append(time.perf_counter() - started.pop("t"))
+        out = classify(frames)
+        rec["frames"].append(frames)
+        rec["results"].append(out)
+        return out
+
+    def build_batch_i420(*args, **kwargs):
+        t = time.perf_counter()
+        out = letterbox(*args, **kwargs)
+        rec["letterbox"].append(time.perf_counter() - t)
+        return out
+
+    def process_frames(*args, **kwargs):
+        eng._mark("start")
+        t = time.perf_counter()
+        out = process(*args, **kwargs)
+        rec["engine"].append(time.perf_counter() - t)
+        return out
+
+    svc.probe_video, svc.classify_frames, eng.process_frames = probe_video, classify_frames, process_frames
+    batching.build_batch_i420 = build_batch_i420
+
+    def undo():
+        for obj, name in ((svc, "probe_video"), (svc, "classify_frames"), (eng, "process_frames")):
+            delattr(obj, name)
+        batching.build_batch_i420 = letterbox
+
+    return rec, undo
+
+
+def engine_batches(eng, frames: list) -> list[dict]:
+    """BGR frames through eng as the deepfake service batches them: chunks of
+    frames_per_batch, letterboxed to active-rows I420."""
+    size, chunk, out = eng.cfg.det_size, eng.cfg.frames_per_batch, []
+    for i in range(0, len(frames), chunk):
+        part = frames[i:i + chunk]
+        rows = batching.active_rows_for([f.shape[:2] for f in part], size)
+        batch, _ = batching.build_batch_i420(dict(enumerate(part)), size, slots=len(part),
+                                             active_rows=rows)
+        out.append(eng.process_frames(batch, fmt="yuv420"))
+    return out
+
+
+BF16_TOL = dict(box_px=1.0, cos=0.99, fake_prob=0.02)
+# Two anchors of one face whose scores lie this close are a near tie: a
+# logit's bf16 step (2^-7 at |logit| < 4) moves a score of 0.998 by 2e-5, so
+# bf16 rounding on either device can flip which one greedy suppression keeps
+# (the kept box then moves by some 3 px at det 640, and the crop with it).
+NEAR_TIE = 2e-4
+
+
+def kept_anchors(fn, det_size: float) -> tuple[list, list, list]:
+    """Run fn(), which returns a list of process_frames results, with the
+    detection head's candidate payloads captured. Returns the results, per
+    result [B, M, 5] the prior (cx, cy, w, h) and score of the candidate each
+    slot kept (the one whose decoded box is the slot's box), and the
+    payloads [B, K, 19] on the host."""
+    payloads = []
+    build = detection_cuda.build_payload
+
+    def capture(*args, **kwargs):
+        payloads.append(build(*args, **kwargs))
+        return payloads[-1]
+
+    detection_cuda.build_payload = capture
+    try:
+        results = fn()
+    finally:
+        detection_cuda.build_payload = build
+    if len(payloads) != len(results):
+        raise AssertionError(f"{len(payloads)} head payloads for {len(results)} results")
+    anchors, hosts = [], []
+    for p, out in zip(payloads, results):
+        p = p.float().cpu()
+        boxes = decode_boxes(p[..., 0:4], p[..., 14:18], det_size).numpy()
+        idx = np.abs(boxes[:, None] - out["boxes"][:, :, None]).sum(-1).argmin(-1)  # [B, M]
+        host = p.numpy()
+        anchors.append(host[np.arange(len(host))[:, None], idx][..., 14:19])
+        hosts.append(host)
+    return results, anchors, hosts
+
+
+def face_agreement(g: dict, w: dict) -> tuple[dict, np.ndarray]:
+    """Per slot [B, M] of two results: box error (px), embedding cosine and
+    fake_prob error of `g` against `w`, and where they agree within BF16_TOL
+    (only slots valid in both can)."""
+    a, b = g["embeddings"], w["embeddings"]
+    with np.errstate(invalid="ignore", divide="ignore"):  # empty slots: 0 / 0
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    e = dict(box_px=np.abs(g["boxes"] - w["boxes"]).max(axis=-1), cos=cos,
+             fake_prob=np.abs(g["fake_prob"] - w["fake_prob"]))
+    agree = ((e["box_px"] <= BF16_TOL["box_px"]) & (e["cos"] >= BF16_TOL["cos"])
+             & (e["fake_prob"] <= BF16_TOL["fake_prob"]) & g["valid"] & w["valid"])
+    return e, agree
+
+
+def bf16_against_cpu(card: tuple, cpu: tuple, margin: float = 0.05) -> dict:
+    """The card's bf16 results against the CPU's bf16 results on the same
+    batches, each a kept_anchors triple. A face agrees when its box is within
+    1 px, its embedding at cosine >= 0.99 and its fake_prob within 0.02
+    (BF16_TOL). Every face whose kept anchor is the same on both must agree;
+    a face whose kept anchor differs (an anchor flip) must be a near tie
+    (the two anchors' CPU scores within NEAR_TIE) with its fake_prob within
+    0.02. best_idx is held equal on agreeing faces where the CPU's two
+    nearest entries are `margin` apart; no per-frame verdict (max fake_prob
+    >= 0.5) may flip. Returns the counts, the worst errors and each flip."""
+    n = dict(frames=0, slots=0, valid_diff=0, count_diff=0, off_bf16=0, off_same_anchor=0,
+             anchor_flips=0, flips_not_tied=0, best_idx_diff=0, best_idx_clear=0,
+             best_idx_clear_diff=0, frame_verdict_flips=0)
+    worst = dict(box_px=0.0, cos_min=1.0, fake_prob=0.0, distance=0.0)
+    flips: list = []
+    for g, ga, w, wa, wp in zip(card[0], card[1], *cpu):
+        n["frames"] += len(w["count"])
+        n["valid_diff"] += int((g["valid"] != w["valid"]).sum())
+        n["count_diff"] += int((g["count"] != w["count"]).sum())
+        v = g["valid"] & w["valid"]
+        n["slots"] += int(v.sum())
+        if not v.any():
+            continue
+        e, agree = face_agreement(g, w)
+        worst["box_px"] = max(worst["box_px"], float(e["box_px"][v].max()))
+        worst["cos_min"] = min(worst["cos_min"], float(e["cos"][v].min()))
+        worst["fake_prob"] = max(worst["fake_prob"], float(e["fake_prob"][v].max()))
+        worst["distance"] = max(worst["distance"],
+                                float(np.abs(g["best_distance"][v] - w["best_distance"][v]).max()))
+        same = v & (ga[..., :4] == wa[..., :4]).all(-1)
+        n["off_bf16"] += int((v & ~agree).sum())
+        n["off_same_anchor"] += int((same & ~agree).sum())
+        for i, j in zip(*np.nonzero(v & ~same)):
+            prior = (wp[i, :, 14:18] == ga[i, j, :4]).all(-1)
+            gap = float(wa[i, j, 4] - wp[i, prior, 18].max()) if prior.any() else float("inf")
+            tied = abs(gap) <= NEAR_TIE and e["fake_prob"][i, j] <= BF16_TOL["fake_prob"]
+            n["anchor_flips"] += 1
+            n["flips_not_tied"] += int(not tied)
+            flips.append(dict(score_gap=gap, box_px=round(float(e["box_px"][i, j]), 3),
+                              cos=round(float(e["cos"][i, j]), 4)))
+        diff = v & (g["best_idx"] != w["best_idx"])
+        clear = same & agree & ((w["topk_distance"][..., 1] - w["topk_distance"][..., 0]) >= margin)
+        n["best_idx_diff"] += int(diff.sum())
+        n["best_idx_clear"] += int(clear.sum())
+        n["best_idx_clear_diff"] += int((diff & clear).sum())
+        for i in range(len(w["count"])):
+            if v[i].any():
+                n["frame_verdict_flips"] += int(
+                    (g["fake_prob"][i][v[i]].max() >= 0.5) != (w["fake_prob"][i][v[i]].max() >= 0.5))
+    ok = (n["valid_diff"] == 0 and n["count_diff"] == 0 and n["off_same_anchor"] == 0
+          and n["flips_not_tied"] == 0 and n["best_idx_clear_diff"] == 0
+          and n["frame_verdict_flips"] == 0)
+    return dict(ok=ok, **n, **worst, flips=flips)
+
+
+def run_bf16_check(dev, scenes: np.ndarray, video_frames: list, **overrides) -> dict:
+    """Queue 3 item 2: the default engine (bf16) on `dev` against the CPU
+    engine at bf16, on the rendered scenes (RGB) and on the video's sampled
+    frames (active-rows I420, as the deepfake service sends them), with a
+    gallery of the faces they hold (each at its own norm) and decoys."""
+    engs = [RecognitionEngine(load_config(**overrides), device=d) for d in (dev, "cpu")]
+    if engs[0].cfg.compute_dtype != "bfloat16" and not overrides:
+        raise AssertionError("the default config does not compute in bf16")
+    ref = [engs[1].process_frames(scenes)] + engine_batches(engs[1], video_frames)
+    embs = np.concatenate([o["embeddings"][o["valid"]] for o in ref])
+    embs = embs * np.linspace(1.0, 0.8, len(embs), dtype=np.float32)[:, None]
+    decoys = np.random.default_rng(SEED).normal(size=(3, embs.shape[1])).astype(np.float32)
+    for eng in engs:
+        for i, e in enumerate([*embs, *decoys]):
+            eng.gallery.add(f"g{i}", e)
+    res = [kept_anchors(lambda: [eng.process_frames(scenes)] + engine_batches(eng, video_frames),
+                        float(eng.cfg.det_size)) for eng in engs]
+    verdicts = []
+    for out in (r[0] for r in res):
+        probs = [float(o["fake_prob"][i][o["valid"][i]].max())
+                 for o in out[1:] for i in range(len(o["count"])) if o["valid"][i].any()]
+        verdicts.append("fake" if probs and np.mean(probs) >= 0.5 else "real" if probs else "no_faces")
+    return dict(scenes=bf16_against_cpu(*(tuple(x[:1] for x in r) for r in res)),
+                video=bf16_against_cpu(*(tuple(x[1:] for x in r) for r in res)),
+                verdicts=verdicts, gallery=len(embs) + 3)
+
+
+def clip_read_ms(path: str, sampled) -> dict:
+    """Host ms to read a clip's sampled frames by seeking to each, as the
+    deepfake service does but with cv2's own MJPEG backend, and to read every
+    frame in order with cv2's default backend (the service's); with the
+    sampled frames of the in-order read, to hold the service's seeks to."""
+    import cv2
+
+    cap = cv2.VideoCapture(path, cv2.CAP_OPENCV_MJPEG)
+    out = {"mjpeg_backend": cap.getBackendName()}
+    t = time.perf_counter()
+    for i in sampled:
+        cap.set(cv2.CAP_PROP_POS_FRAMES, int(i))
+        if not cap.read()[0]:
+            raise AssertionError(f"frame {i} of {path} did not read")
+    out["mjpeg_seek_ms"] = (time.perf_counter() - t) * 1e3
+    cap.release()
+    cap = cv2.VideoCapture(path)
+    out["default_backend"] = cap.getBackendName()
+    want, frames = {int(i) for i in sampled}, {}
+    t, n = time.perf_counter(), 0
+    while (got := cap.read())[0]:
+        if n in want:
+            frames[n] = got[1]
+        n += 1
+    out["in_order_ms"], out["in_order_frames"] = (time.perf_counter() - t) * 1e3, n
+    cap.release()
+    out["sampled_frames"] = [frames[int(i)] for i in sampled]
+    return out
+
+
+def run_services(dev, **overrides) -> dict:
+    """Phase 11: the deepfake video, image and CCTV routes, the async search,
+    federated averaging, the snapshot, /app and /dashboard on phase 10's app
+    (the default config; `overrides` of it only for a rehearsal on the CPU),
+    served over the socket; then the video at f32 on `dev` against the CPU,
+    and the bf16 check."""
+    import cv2  # the card machine has cv2: the deepfake service reads video with it
+
+    tmp = tempfile.mkdtemp(prefix="frp_services_")
+    clip, warm_clip = os.path.join(tmp, "walk.avi"), os.path.join(tmp, "warm.avi")
+    t0 = time.perf_counter()
+    has_face = write_face_clip(clip, *VIDEO_SIZE, VIDEO_FRAMES, seed=SEED)
+    write_face_clip(warm_clip, *VIDEO_SIZE, WARM_FRAMES, seed=SEED + 1)
+    write_s = time.perf_counter() - t0
+    with open(clip, "rb") as f:
+        clip_bytes = f.read()
+    router, sio, ctx, _ = platform_app(dev, os.path.join(tmp, "data"), **overrides)
+    cfg, svc = ctx.cfg, ctx.deepfake
+    timed = dev.type == "cuda"
+    n = svc.max_frames
+    sampled = svc._sample_indices(VIDEO_FRAMES, False)
+    with_face = sum(has_face[i] for i in sampled)
+    rec, undo = instrument_deepfake(svc, ctx.engine)
+    port, stop = start_server(router, sio)
+    try:
+        frame0 = ctx.cameras.get(0).read()[1]
+        enrol(ctx, frame0)
+        jpeg0 = cv2.imencode(".jpg", frame0)[1].tobytes()
+        with open(warm_clip, "rb") as f:
+            warm = post_file(port, "/deepfake/detect", "warm.avi", f.read(), "video/x-msvideo")
+        if warm[0] != 200 or warm[1]["frames_sampled"] != WARM_FRAMES:
+            raise AssertionError(f"the warm-up video: {warm}")
+        for v in rec.values():
+            v.clear()
+
+        # the video, then the same bytes again (the dedup cache)
+        reset_launches()
+        if timed:
+            torch.cuda.synchronize()
+            ctx.engine.stage_events = []
+        t = time.perf_counter()
+        status, video = post_file(port, "/deepfake/detect", "walk.avi", clip_bytes, "video/x-msvideo")
+        video_wall = time.perf_counter() - t
+        video_launches = launches()
+        events, ctx.engine.stage_events = ctx.engine.stage_events, None
+        chunks = scan_device_ms(events) if timed else []
+        parts = {k: float(np.sum(rec[k])) * 1e3 for k in ("read", "letterbox", "engine")}
+        n_chunks = len(rec["engine"])
+        if status != 200 or video["cached"] or video["frames_sampled"] != n:
+            raise AssertionError(f"POST /deepfake/detect: {status} {video}")
+        if video["frames_with_faces"] != with_face or "result" not in video or "confidence" not in video:
+            raise AssertionError(f"{video['frames_with_faces']} frames with faces of {n} sampled, "
+                                 f"{with_face} hold one: {video}")
+        want = -(-n // cfg.frames_per_batch)
+        if n_chunks != want or (timed and video_launches != {
+                "detection_head": want, "warp_crops": want, "greedy_nms": 0}):
+            raise AssertionError(f"the video took {n_chunks} chunks, launches {video_launches}")
+        status, again = post_file(port, "/deepfake/detect", "walk.avi", clip_bytes, "video/x-msvideo")
+        if status != 200 or not again["cached"] or launches() != video_launches:
+            raise AssertionError(f"the second upload: cached {again.get('cached')}, "
+                                 f"launches {launches()}")
+
+        # one image, the CCTV sweep over the cameras, the async search
+        status, image = post_file(port, "/deepfake/detect-image", "cam0.jpg", jpeg0, "image/jpeg")
+        if status != 200 or image.get("faces", 0) < 1 or image["result"] not in ("real", "fake"):
+            raise AssertionError(f"POST /deepfake/detect-image: {status} {image}")
+        t = time.perf_counter()
+        status, cctv = asyncio.run(http_get(port, f"/deepfake/cctv?max_frames={CCTV_FRAMES}"))
+        cctv_s = time.perf_counter() - t
+        tallies = cctv["cameras"].values()
+        if status != 200 or len(cctv["cameras"]) != PLATFORM_CAMERAS or any(
+                c["frames"] != CCTV_FRAMES or c["no_faces"] == CCTV_FRAMES for c in tallies):
+            raise AssertionError(f"GET /deepfake/cctv: {status} {cctv}")
+        status, job = post_file(port, "/async/face/search", "cam0.jpg", jpeg0, "image/jpeg")
+        if status != 202:
+            raise AssertionError(f"POST /async/face/search: {status} {job}")
+        deadline = time.time() + 60
+        while job["status"] not in ("finished", "failed") and time.time() < deadline:
+            time.sleep(0.05)
+            job = asyncio.run(http_get(port, f"/async/jobs/{job['job_id']}"))[1]
+        best = (job.get("result") or {}).get("results", [{}])[0].get("best_match") or {}
+        if job["status"] != "finished" or best.get("target") != ENROLLED:
+            raise AssertionError(f"the async search: {job}")
+        got_launches = launches()
+        want_all = want + 1 + PLATFORM_CAMERAS + 1  # video, image, a chunk a camera, search
+        if timed and got_launches != {"detection_head": want_all, "warp_crops": want_all,
+                                      "greedy_nms": 0}:
+            raise AssertionError(f"phase 11 launches {got_launches}, expected {want_all} each")
+
+        # federated averaging: two clients, then the aggregate
+        rng = np.random.default_rng(SEED)
+        ups = {c: {k: rng.normal(size=shape) for k, shape in FL_LAYERS.items()} for c in ("a", "b")}
+        for c, w in ups.items():
+            body = json.dumps({"target": c, "weights": {k: v.tolist() for k, v in w.items()}}).encode()
+            status, _, got = asyncio.run(http_call(port, "POST", "/face/fl/upload_weights", body,
+                                                   {"Content-Type": "application/json"}))
+            if status != 200 or json.loads(got)["status"] != "success":
+                raise AssertionError(f"FL upload {c}: {status} {got[:200]}")
+        status, _, agg = asyncio.run(http_call(port, "POST", "/face/fl/aggregate", b"{}",
+                                               {"Content-Type": "application/json"}))
+        model = asyncio.run(http_get(port, "/face/fl/global_model"))[1]
+        if status != 200 or json.loads(agg)["aggregation_details"]["clients_aggregated"] != 2:
+            raise AssertionError(f"FL aggregate: {status} {agg[:200]}")
+        for k in FL_LAYERS:
+            mean = ups["a"][k] * 0.5 + ups["b"][k] * 0.5
+            if not np.array_equal(np.asarray(model["weights"][k]), mean):
+                raise AssertionError(f"the FL global model's {k} is not the numpy mean")
+
+        # the snapshot (200 with an ETag, then 304), /app and /dashboard
+        status, head, jpeg = asyncio.run(http_call(port, "GET", "/api/camera/0/snapshot"))
+        status2, _, empty = asyncio.run(http_call(port, "GET", "/api/camera/0/snapshot",
+                                                  headers={"If-None-Match": head.get("etag", "")}))
+        if status != 200 or not head.get("etag") or not jpeg.startswith(b"\xff\xd8") \
+                or status2 != 304 or empty:
+            raise AssertionError(f"snapshot: {status} {head}, then {status2}")
+        pages = {p: asyncio.run(http_call(port, "GET", p)) for p in ("/app", "/dashboard")}
+        if any(st != 200 or b"<html" not in body.lower() for st, _, body in pages.values()):
+            raise AssertionError(f"pages: { {p: r[0] for p, r in pages.items()} }")
+        stats = asyncio.run(http_get(port, "/deepfake/stats"))[1]
+        if stats["total_videos"] != 2:
+            raise AssertionError(f"/deepfake/stats: {stats}")
+    finally:
+        undo()
+        stop()
+        ctx.shutdown()
+
+    reads = clip_read_ms(clip, sampled)
+
+    # the video at f32 on dev against the CPU: every sampled frame, the verdict
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        _, _, c, _ = platform_app(d, os.path.join(tmp, f"f32_{i}"), **{**overrides, "compute_dtype": "float32"})
+        r, u = instrument_deepfake(c.deepfake, c.engine)
+        try:
+            out = c.deepfake.process_video(clip)
+        finally:
+            u()
+            c.shutdown()
+        f32.append((out, [x for part in r["results"] for x in part], r["frames"]))
+    (g, gframes, frames), (w, wframes, _) = f32
+    frames = [f for part in frames for f in part]
+    # cv2's seeks gave the service the frames an in-order read gives
+    in_order = reads.pop("sampled_frames")
+    if len(frames) != len(in_order) or any(not np.array_equal(a, b) for a, b in zip(frames, in_order)):
+        raise AssertionError("the service's seeks read other frames than an in-order read")
+    perr = dict(fake_prob=0.0, box_px=0.0)
+    if not len(gframes) == len(wframes) == n or g["result"] != w["result"]:
+        raise AssertionError(f"f32 video: {g['result']} on {dev}, {w['result']} on the CPU")
+    for i, (a, b) in enumerate(zip(gframes, wframes)):
+        if a["faces"] != b["faces"] or (a["fake_prob"] is None) != (b["fake_prob"] is None):
+            raise AssertionError(f"f32 frame {i}: {a} on {dev}, {b} on the CPU")
+        if a["fake_prob"] is not None:
+            perr["fake_prob"] = max(perr["fake_prob"], abs(a["fake_prob"] - b["fake_prob"]))
+            perr["box_px"] = max(perr["box_px"], float(np.abs(np.subtract(a["boxes"], b["boxes"])).max()))
+    if perr["fake_prob"] > 1e-3 or perr["box_px"] > 1e-2:
+        raise AssertionError(f"f32 video frames differ: {perr}")
+
+    bf16 = run_bf16_check(dev, render_scenes(FRAMES, cfg.det_size, SEED), frames, **overrides)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not (bf16["scenes"]["ok"] and bf16["video"]["ok"]):
+        raise AssertionError(f"bf16 on {dev} against the CPU at bf16: {bf16}")
+    return dict(
+        launches=got_launches, video_launches=video_launches, write_s=write_s,
+        clip_mb=len(clip_bytes) / 1e6, reads=reads,
+        video=video, chunks=n_chunks, video_wall_ms=video_wall * 1e3,
+        video_ms=video["processing_time"] * 1e3, parts_ms=parts,
+        chunk_device_ms=chunks, cctv_ms=cctv_s * 1e3, cctv=cctv["cameras"],
+        image=image, job_distance=best["distance"], fl_layers=len(FL_LAYERS),
+        f32=dict(result=g["result"], confidence=(g["confidence"], w["confidence"]),
+                 mean=(g["statistics"].get("mean_fake_probability"),
+                       w["statistics"].get("mean_fake_probability")), **perr),
+        bf16=bf16,
+    )
+
+
 # --- main --------------------------------------------------------------------
 
 def gpu_name_and_limit() -> str:
@@ -1327,7 +1798,55 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3g}" for k, v in ppar["max_abs_err"].items())
         + f"; phase 10 took {time.perf_counter() - t_platform:.1f} s")
 
-    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped, plat))
+    t_services = time.perf_counter()
+    srv = run_services(dev)
+    v, p = srv["video"], srv["parts_ms"]
+    say("services", f"POST /deepfake/detect, a {VIDEO_SIZE[0]}x{VIDEO_SIZE[1]} MJPG clip of {VIDEO_FRAMES} "
+        f"frames, {srv['clip_mb']:.1f} MB (written in {srv['write_s']:.1f} s): {v['frames_sampled']} sampled, "
+        f"{v['frames_with_faces']} with a face (as rendered), result {v['result']} ({v['confidence']}), "
+        f"statistics {v['statistics']}; {srv['chunks']} chunks, launches {srv['video_launches']}; "
+        "the same bytes again: cached, no launch")
+    say("services", f"video ms (host clock): request {srv['video_wall_ms']:.1f}, service "
+        f"{srv['video_ms']:.1f} = read and seek {p['read']:.1f} + letterbox {p['letterbox']:.1f} + "
+        f"engine {p['engine']:.1f} + other {srv['video_ms'] - sum(p.values()):.1f}; "
+        f"{srv['video_ms'] / v['frames_sampled']:.2f} ms a sampled frame; device ms a chunk "
+        + ", ".join(f"{x:.3f}" for x in srv["chunk_device_ms"]) + f"; on {smi}")
+    r = srv["reads"]
+    say("services", f"the service read its {v['frames_sampled']} frames by seeking with cv2's "
+        f"default backend ({r['default_backend']}), bit for bit the frames an in-order read "
+        f"gives; the same seeks with the {r['mjpeg_backend']} "
+        f"backend {r['mjpeg_seek_ms']:.1f} ms, all {r['in_order_frames']} frames in order with "
+        f"the default one {r['in_order_ms']:.1f} ms (host clock) on {smi}")
+    say("services", f"POST /deepfake/detect-image: {srv['image']['result']} "
+        f"({srv['image']['faces']} faces); GET /deepfake/cctv?max_frames={CCTV_FRAMES} over "
+        f"{PLATFORM_CAMERAS} cameras {srv['cctv_ms']:.1f} ms (host clock) on {smi}: "
+        + ", ".join(f"{k} {c['real']}/{c['fake']}/{c['no_faces']}" for k, c in srv["cctv"].items())
+        + " (real/fake/no face)")
+    say("services", f"async search matched {ENROLLED} at distance {srv['job_distance']:.4f}; FL "
+        f"aggregate of 2 clients equals the numpy mean bit for bit ({srv['fl_layers']} layers); "
+        f"snapshot 200 with an ETag, then 304; /app and /dashboard 200; launches {srv['launches']}")
+    f = srv["f32"]
+    say("services", f"f32, TF32 off, cuda against cpu on the {v['frames_sampled']} sampled frames: "
+        f"faces equal, verdict {f['result']} on both ({f['confidence'][0]}, {f['confidence'][1]}; "
+        f"mean fake_prob {f['mean'][0]}, {f['mean'][1]}); max abs err fake_prob "
+        f"{f['fake_prob']:.3g}, boxes {f['box_px']:.3g} px")
+    for name in ("scenes", "video"):
+        b = srv["bf16"][name]
+        say("services", f"bf16 default engine, cuda against cpu at bf16, {name}: {b['frames']} frames, "
+            f"{b['slots']} faces; valid differ {b['valid_diff']}, count differ {b['count_diff']}; "
+            f"faces off the cpu's bf16 (box > 1 px, cosine < 0.99 or fake_prob > 0.02) "
+            f"{b['off_bf16']} of {b['slots']}, of which with the same kept anchor "
+            f"{b['off_same_anchor']}; anchor flips {b['anchor_flips']} (not a near tie "
+            f"{b['flips_not_tied']}); best_idx differ "
+            f"{b['best_idx_diff']} of {b['slots']} ({b['best_idx_clear_diff']} of "
+            f"{b['best_idx_clear']} agreeing faces with a clear margin); per-frame verdicts flipped "
+            f"{b['frame_verdict_flips']}; min cosine {b['cos_min']:.5f}, max abs err boxes "
+            f"{b['box_px']:.3g} px, fake_prob {b['fake_prob']:.3g}, distance {b['distance']:.3g}"
+            + "".join(f"; anchor flip: {u}" for u in b["flips"]))
+    say("services", f"bf16 video verdicts: {srv['bf16']['verdicts'][0]} on cuda, "
+        f"{srv['bf16']['verdicts'][1]} on cpu; phase 11 took {time.perf_counter() - t_services:.1f} s")
+
+    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped, plat, srv))
               for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():

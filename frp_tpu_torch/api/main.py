@@ -5,10 +5,11 @@ server (port of ``frp_tpu/api/main.py``).
         [--scan-interval S] [--no-warmup]
 
 The engine runs on the card unless ``--device cpu`` is given; without a
-card the default raises. ``build_app`` mounts the camera, face and alerts
-routes and the root, status and debug routes. The JAX app's deepfake,
-federated, snapshot, async-task, dashboard and frontend routes and its
-``--mesh`` option are not ported yet (ROADMAP, Queue 1 item 4).
+card the default raises. ``build_app`` mounts the JAX app's route table:
+the root, status and debug routes and the camera, face, federated,
+deepfake, alerts, snapshot, async-task, dashboard and frontend routes, in
+the JAX order. The JAX app's ``--mesh`` option is not ported yet (ROADMAP,
+Queue 1 item 5).
 
 One difference from the JAX server: a failed warmup raises. On the card
 the first warmup is where nvcc builds the kernels, and a server that went
@@ -23,8 +24,14 @@ import os
 from frp_tpu_torch.api.http import HTTPServer, Request, Router, json_response
 from frp_tpu_torch.api.routes import (
     alerts as alerts_routes,
+    async_tasks as async_routes,
     camera as camera_routes,
+    dashboard as dashboard_routes,
+    deepfake as deepfake_routes,
     face as face_routes,
+    federated as federated_routes,
+    frontend as frontend_routes,
+    snapshot as snapshot_routes,
 )
 from frp_tpu_torch.api.socketio import SocketIOServer
 from frp_tpu_torch.platform.context import AppContext
@@ -35,7 +42,7 @@ logger = get_logger("frp.api.main")
 
 
 def build_app(ctx: AppContext | None = None, **ctx_kwargs):
-    """Returns (router, sio, ctx) with every mounted route registered."""
+    """Returns (router, sio, ctx) with every route registered."""
     ctx = ctx or AppContext(**ctx_kwargs)
     router = Router()
     sio = SocketIOServer(event_hub=ctx.events)
@@ -110,7 +117,13 @@ def build_app(ctx: AppContext | None = None, **ctx_kwargs):
 
     camera_routes.register(router, ctx)
     face_routes.register(router, ctx)
+    federated_routes.register(router, ctx)
+    deepfake_routes.register(router, ctx)
     alerts_routes.register(router, ctx)
+    snapshot_routes.register(router, ctx)
+    async_routes.register(router, ctx)  # mounted (reference forgets this)
+    dashboard_routes.register(router, ctx)
+    frontend_routes.register(router, ctx)
     return router, sio, ctx
 
 

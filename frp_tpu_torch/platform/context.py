@@ -3,10 +3,9 @@
 
 It owns a port ``RecognitionEngine`` (built on the card unless the caller
 names another device, or injected), the store, the cipher, the cameras and
-every service the port's mounted routes use: face service, tracking, alerts,
-health, thumbnails, tracer and timers. The deepfake, federated and
-async-task services of the JAX context are not ported yet, and their routes
-are not mounted (ROADMAP, Queue 1 item 4).
+every service of the JAX context: face service, tracking, alerts, deepfake,
+federated learning, async tasks, health, thumbnails, tracer and timers. The
+JAX context's ``mesh`` is not ported (ROADMAP, Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -17,8 +16,11 @@ import threading
 
 from frp_tpu_torch.config import Config, get_config
 from frp_tpu_torch.platform.alerts import AlertService
+from frp_tpu_torch.platform.async_tasks import AsyncTaskManager
 from frp_tpu_torch.platform.dbops import ensure_indexes, make_log_alert, make_save_detection
+from frp_tpu_torch.platform.deepfake import DeepfakeService
 from frp_tpu_torch.platform.face_service import FaceService
+from frp_tpu_torch.platform.federated import FederatedService
 from frp_tpu_torch.platform.health import HealthMonitor
 from frp_tpu_torch.platform.state import (
     DEFAULT_CAMERA_CONFIGS,
@@ -156,6 +158,29 @@ class AppContext:
             email_retries=self.cfg.email_retries,        # ALERT_EMAIL_RETRIES
             email_retry_base=self.cfg.email_retry_base,  # ALERT_EMAIL_RETRY_BASE
         )
+        self.deepfake = DeepfakeService(
+            engine,
+            deepfake_collection=self.db["deepfakes"],
+            max_frames=self.cfg.deepfake_max_frames,
+            threshold=self.cfg.deepfake_threshold,
+            cache_ttl=self.cfg.deepfake_cache_ttl,
+            logs_dir=self.cfg.deepfake_logs_path(),  # DEEPFAKE_LOGS_DIR
+            weights_loaded=bool(
+                (getattr(engine, "weights_loaded", None) or {}).get("spoof")
+            ),
+        )
+        self.federated = FederatedService(
+            weights_dir=self.cfg.fl_path(),  # FL_DIR
+            min_clients=self.cfg.fl_min_clients,
+            history_limit=self.cfg.fl_history_limit,
+        )
+        self.async_tasks = AsyncTaskManager(
+            face_service=self.face_service,
+            event_hub=self.events,
+            jobs_collection=self.db["async_jobs"],
+            max_workers=self.cfg.async_max_workers,
+            retention_seconds=self.cfg.job_retention,
+        )
         self.health = HealthMonitor(
             self.cameras,
             self.db[self.cfg.cameras_collection],  # CAMERAS_COLLECTION
@@ -186,5 +211,6 @@ class AppContext:
 
     def shutdown(self):
         self.health.stop()
+        self.async_tasks.shutdown()
         self.tracking.shutdown()
         self.cameras.close_all()

@@ -1,7 +1,8 @@
-"""PyTorch port, the server: the route contract of tests/test_api.py for the
-routes the port mounts, each case run on the JAX app and on the port's app
-with the same fake engine (a deterministic embedding of the image, in each
-package's own gallery); the port's server on a live socket (HTTP, a
+"""PyTorch port, the server: the JAX app's route table on the port's router;
+the route contract of tests/test_api.py for the camera, face, alerts and
+debug routes, each case run on the JAX app and on the port's app with the
+same fake engine (a deterministic embedding of the image, in each package's
+own gallery); the port's server on a live socket (HTTP, a
 multipart upload, the Socket.IO handshake and the alert a scan pushes); the
 ``python -m frp_tpu_torch.api.main`` entry point; the card as the default
 device and a warmup failure that raises."""
@@ -320,15 +321,20 @@ def test_router_errors(app):
 # --- the port alone -------------------------------------------------------------------
 
 def test_port_mounts_only_the_ported_routes(tmp_path):
-    a = App("torch", tmp_path)
-    try:
-        for method, path in (("GET", "/face/fl/status"), ("GET", "/deepfake/config"),
-                             ("GET", "/async/jobs/x"), ("GET", "/dashboard"),
-                             ("GET", "/api/camera/0/snapshot")):
-            assert a.router.resolve(method, path)[0] is None, path
-        assert a.router.resolve("GET", "/camera/alerts")[0] is not None
-    finally:
+    """Every route is ported: the port's build_app mounts every (method,
+    pattern) of the JAX build_app, in the same order, and no other."""
+    tables, routers = [], []
+    for kind in ("jax", "torch"):
+        a = App(kind, tmp_path / kind)
         a.ctx.shutdown()
+        tables.append([(m, regex.pattern) for m, regex, _, _ in a.router._routes])
+        routers.append(a.router)
+    assert len(tables[1]) == len(set(tables[1])) > 100
+    assert tables[1] == tables[0]
+    for method, path in (("GET", "/face/fl/status"), ("GET", "/deepfake/config"),
+                         ("GET", "/async/jobs/x"), ("GET", "/dashboard"),
+                         ("GET", "/api/camera/0/snapshot"), ("GET", "/app/src/api.js")):
+        assert routers[1].resolve(method, path)[0] is not None, path
 
 
 def test_debug_trace_writes_a_chrome_trace(tmp_path):

@@ -1,8 +1,9 @@
 """PyTorch port, on the card: each hand-written CUDA kernel against its plain
 PyTorch version at the main path's shapes (masks, valid flags and counts bit
-for bit, floats within 1e-3), and the accuracy profile's embedder, embed
+for bit, floats within 1e-3); the accuracy profile's embedder, embed
 compaction and pipelined serving calls against the CPU or the unpipelined
-calls. The kernels have no CPU mode, so these tests are marked ``cuda`` and
+calls; the serving default (bf16) against the CPU engine at bf16; and the
+deepfake service on the card against the CPU. The kernels have no CPU mode, so these tests are marked ``cuda`` and
 skip where torch.cuda.is_available() is false.
 
 The card machine has no JAX and tests/conftest.py imports it, so run them
@@ -29,8 +30,9 @@ from frp_tpu_torch.ops import align_cuda, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
 from frp_tpu_torch.ops.nms import nms_padded, nms_padded_batched, overlap_matrix
+from frp_tpu_torch.platform.deepfake import DeepfakeService
 from frp_tpu_torch.testing.payloads import crowd_payload
-from frp_tpu_torch.testing.synthetic import make_scene
+from frp_tpu_torch.testing.synthetic import make_scene, write_face_clip
 
 
 @pytest.fixture
@@ -357,3 +359,107 @@ def test_put_payload_thread_and_fetch_many_match_fetch(cuda):
             np.testing.assert_allclose(g[key][v], w[key][v], rtol=0, atol=1e-3, err_msg=key)
     np.testing.assert_array_equal(eng._delta_prev.cpu().numpy().reshape(8, -1),
                                   smoke.tick_batch(scenes, 6).reshape(8, -1))
+
+
+def _clip_frames(tmp_path, width, height, frames):
+    """A write_face_clip clip and every BGR frame of it, read in order."""
+    import cv2
+
+    path = str(tmp_path / "clip.avi")
+    has_face = write_face_clip(path, width, height, frames, seed=0)
+    cap = cv2.VideoCapture(path)
+    out = []
+    while len(out) < frames:
+        ok, frame = cap.read()
+        assert ok
+        out.append(frame)
+    cap.release()
+    return path, out, has_face
+
+
+@pytest.mark.cuda
+def test_default_bf16_engine_on_the_card_matches_cpu_bf16(cuda, tmp_path):
+    """The serving default (bf16) on the card against the CPU engine at bf16,
+    on 8 rendered 640 scenes and 12 frames of a 1080p clip as the deepfake
+    service batches them (chip_smoke.run_bf16_check): valid and count equal;
+    every face that kept the same anchor on both within 1 px, at cosine >=
+    0.99 and fake_prob within 0.02 of the CPU at bf16, and a face that kept
+    another one a near tie (the two anchors' scores within 2e-4); best_idx
+    equal on agreeing faces where the CPU's two nearest entries are 0.05
+    apart; no verdict flips."""
+    smoke = _smoke()
+    _, frames, has_face = _clip_frames(tmp_path, 1920, 1080, 12)
+    out = smoke.run_bf16_check(cuda, smoke.render_scenes(8, 640, 0), frames)
+    for part in ("scenes", "video"):
+        assert out[part]["ok"], (part, out[part])
+    assert out["video"]["slots"] == sum(has_face)
+    assert out["verdicts"][0] == out["verdicts"][1]
+
+
+@pytest.mark.cuda
+def test_deepfake_service_on_the_card_matches_cpu(cuda, tmp_path):
+    """The deepfake service on the card engine against the CPU engine, both
+    at f32 (TF32 off), on a 960x540 clip of 30 frames (10 sampled: chunks of
+    8 and 2): per frame the face count, fake_prob within 1e-3 and boxes within
+    1e-2 px; the same verdict and statistics (rounded to 4 decimals: one
+    step)."""
+    path, _, has_face = _clip_frames(tmp_path, 960, 540, 30)
+    res = [DeepfakeService(RecognitionEngine(load_config(compute_dtype="float32"), device=d),
+                           max_frames=10).process_video(path) for d in (cuda, "cpu")]
+    got, want = res
+    idx = DeepfakeService(None, max_frames=10)._sample_indices(30, False)
+    assert want["frames_with_faces"] == sum(has_face[i] for i in idx) > 0
+    for key in ("result", "confidence", "frames_sampled", "frames_with_faces"):
+        assert got[key] == want[key], key
+    for key, value in want["statistics"].items():
+        assert abs(got["statistics"][key] - value) <= 1e-4 + 1e-9, key
+    for g, w in zip(got["frame_results"], want["frame_results"]):
+        assert g["faces"] == w["faces"] and (g["fake_prob"] is None) == (w["fake_prob"] is None)
+        if w["fake_prob"] is not None:
+            assert abs(g["fake_prob"] - w["fake_prob"]) <= 1e-3
+            np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_deepfake_beside_a_scan_on_the_card(cuda, tmp_path):
+    """The deepfake service and a delta scan stream on one card engine from
+    two threads (both launch onto the default stream): the video's result
+    equals the one processed alone (fake_prob within 1e-5), each scan equals
+    the same payload's scan alone (valid, count, best_idx bit for bit, boxes
+    within 1e-4 px), and the resident batch never desyncs."""
+    smoke = _smoke()
+    path, _, _ = _clip_frames(tmp_path, 960, 540, 30)
+    eng = RecognitionEngine(load_config(compute_dtype="float32"), device=cuda)
+    svc = DeepfakeService(eng, max_frames=10)
+    scenes = smoke.render_scenes(8, 640, 0)
+    ticks = [smoke.tick_batch(scenes, t) for t in range(6)]
+
+    def scans(stop=None):
+        enc = DeltaEncoder(block_bytes=128)
+        outs = []
+        while not (stop.is_set() if stop else len(outs) == len(ticks)):
+            outs.append(eng.fetch(eng.submit_encoded(enc.encode(ticks[len(outs) % len(ticks)]))))
+        return outs
+
+    alone, scans_alone = svc.process_video(path), scans()
+    eng.delta_stats.update(keyframes=0, deltas=0, desyncs=0)
+    stop, outs = threading.Event(), []
+    th = threading.Thread(target=lambda: outs.extend(scans(stop)))
+    th.start()
+    try:
+        beside = svc.process_video(path)
+    finally:
+        stop.set()
+        th.join(120)
+    assert not th.is_alive() and len(outs) >= 2
+    assert eng.delta_stats == {"keyframes": 1, "deltas": len(outs) - 1, "desyncs": 0}
+    for key in ("result", "confidence", "frames_sampled", "frames_with_faces"):
+        assert beside[key] == alone[key], key
+    for a, b in zip(alone["frame_results"], beside["frame_results"]):
+        assert a["faces"] == b["faces"]
+        if a["fake_prob"] is not None:
+            assert abs(a["fake_prob"] - b["fake_prob"]) <= 1e-5
+    for got, want in zip(outs, scans_alone):
+        for key in ("valid", "count", "best_idx"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0, atol=1e-4)

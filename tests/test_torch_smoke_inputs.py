@@ -117,6 +117,33 @@ def test_platform_phase_runs_on_the_cpu(smoke, monkeypatch):
     assert par["detections"] > 0 and all(err == 0.0 for err in par["max_abs_err"].values())
 
 
+def test_services_phase_runs_on_the_cpu(smoke, monkeypatch):
+    """Phase 11 at det 320 on the CPU, a 640x360 clip (the face at the scale
+    phase 11's 1080p clip has at det 640), 2 synthetic 192x192 cameras: the
+    video's sampled frames, the faces found in those that hold one, 3 chunks,
+    the cached second upload, the image, CCTV, async, FL, snapshot and page
+    routes, and the f32 and bf16 halves on two CPU engines (launch counts and
+    device times need the card)."""
+    monkeypatch.setattr(smoke, "PLATFORM_CAMERAS", 2)
+    monkeypatch.setattr(smoke, "PLATFORM_SOURCE", (192, 192))
+    monkeypatch.setattr(smoke, "VIDEO_SIZE", (640, 360))
+    kw = dict(det_size=320, max_faces_per_frame=4, pre_nms_topk=64, det_conf_threshold=0.3,
+              compute_dtype="float32", min_face_quality=0.0)
+    out = smoke.run_services(torch.device("cpu"), **kw)
+    video = out["video"]
+    assert video["frames_sampled"] == 20 and video["frames_with_faces"] == 17
+    assert out["chunks"] == 3 and out["chunk_device_ms"] == []
+    assert set(out["parts_ms"]) == {"read", "letterbox", "engine"} and out["cctv_ms"] > 0
+    assert out["reads"]["in_order_frames"] == 60 and out["reads"]["mjpeg_seek_ms"] > 0
+    assert out["job_distance"] <= 0.6 and out["image"]["faces"] >= 1
+    assert out["f32"]["fake_prob"] == out["f32"]["box_px"] == 0.0
+    for part in ("scenes", "video"):
+        b = out["bf16"][part]
+        assert b["ok"] and b["slots"] > 0 and b["valid_diff"] == b["best_idx_diff"] == 0
+        assert b["off_bf16"] == b["anchor_flips"] == 0 and b["cos_min"] > 0.9999
+    assert out["bf16"]["video"]["slots"] == 17
+
+
 def test_embed_bound_counts_the_rung(smoke, monkeypatch):
     """The embed stage's FLOPs and bytes at det 128 on 16 frames x 4 slots
     follow the rung compaction picks, against the engine built with
