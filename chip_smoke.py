@@ -113,8 +113,31 @@ Phases, each printed on its own lines, in order:
             entries are 0.05 apart; no per-frame verdict flips. The counts
             of each are printed.
 
+12. train  the port's trainers on the card at full width, bf16, one fixed
+            batch rendered once before timing (its host ms printed), 20
+            steps, the loss falling: ArcFace with MobileFaceNet and with
+            iresnet18 (128-d; 64 identities, batch 64, lr 0.05, margin 0.5:
+            tools/pretrain_embedder.py's defaults), iresnet18 again at batch
+            256, the spoof trainer (batch 64 of pretrain_spoof's crops) and
+            the detector trainer (det 320, batch 16, make_batch "mix"). Each
+            prints its step ms (median after 3 warm steps, CUDA events and
+            the synchronized host clock), images/s, FLOPs a step
+            (FlopCounterMode, forward and backward), its bound (the larger of
+            the FLOPs over 989 TFLOP/s bf16 and the bytes over 3.35 TB/s) and
+            its share of it, the device-busy ms and idle share from a
+            torch.profiler trace, and the peak memory. Then one step of each
+            trainer at f32 (TF32 off) on cuda and on the CPU from the same
+            seed (train_parity's bounds); the trained MobileFaceNet, written
+            by save_params beside the shipped detector and spoof weights,
+            served by an engine over the 8 scenes (valid and count equal to
+            phase 4's engine, kernels 1 and 2 once) and by
+            train.pairs.embed_scenes; and two fl_client runs (5 steps each)
+            uploading their weights_delta to the port's server, the aggregate
+            equal to the numpy mean of the two deltas bit for bit under the
+            JAX package's layer names.
+
 Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9,
-10 and 11 and read just after. Any failed check raises, so the run exits
+10, 11 and 12 and read just after. Any failed check raises, so the run exits
 non-zero. The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
@@ -720,28 +743,13 @@ def stream_ms(eng: RecognitionEngine, payloads: list, warm: int) -> dict:
 
 def device_busy_ms(eng: RecognitionEngine, payloads: list, warm: int) -> float | None:
     """Device-busy ms a batch over payloads[warm:], each submitted then
-    fetched, from a torch.profiler trace: the union of the card's kernel and
-    copy intervals, over the batches. None when the trace holds no device
-    activity."""
-    from torch.profiler import ProfilerActivity, profile
-
+    fetched, from a torch.profiler trace (busy_ms): the union of the card's
+    kernel and copy intervals, over the batches. None when the trace holds
+    no device activity."""
     for p in payloads[:warm]:
         eng.fetch(eng.submit_encoded(p))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for p in payloads[warm:]:
-            eng.fetch(eng.submit_encoded(p))
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        return None
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo = busy + hi - lo, a
-        hi = max(hi, b)
-    return (busy + hi - lo) / 1e3 / (len(payloads) - warm)
+    rest = iter(payloads[warm:])
+    return busy_ms(lambda: eng.fetch(eng.submit_encoded(next(rest))), len(payloads) - warm)[0]
 
 
 def compaction_runs(dev, scenes: np.ndarray, profile: dict, eng: RecognitionEngine,
@@ -1638,6 +1646,400 @@ def run_services(dev, **overrides) -> dict:
     )
 
 
+# --- phase 12: training --------------------------------------------------------
+
+TRAIN_IDS = 64  # tools/pretrain_embedder.py's defaults: 64 identities, batch 64,
+TRAIN_BATCH = 64  # lr 0.05, margin 0.5, bf16
+TRAIN_LR = 0.05
+TRAIN_STEPS = 20
+TRAIN_WARM = 3
+BIG_BATCH = 256  # iresnet18 again at this batch: where the arithmetic starts to bind
+DET_TRAIN = (320, 16)  # tools/pretrain_synthetic.py's det size and batch
+PARITY_BATCH = 8
+PARITY_LR = {"arcface": 1e-4, "adamw": 1e-3}
+
+
+def arcface_batch(batch: int, seed: int) -> tuple[np.ndarray, np.ndarray, float]:
+    """(uint8 crops [B, 112, 112, 3], labels, host ms to render them): the
+    tool's crops (make_identity_crop, then jitter_crop) of TRAIN_IDS
+    identities, rounded back to uint8."""
+    from frp_tpu_torch.train.pairs import jitter_crop
+    from frp_tpu_torch.train.synthetic import make_identity, make_identity_crop
+
+    identities = [make_identity(s) for s in range(TRAIN_IDS)]
+    rng = np.random.default_rng(seed)
+    t = time.perf_counter()
+    labels = rng.integers(0, TRAIN_IDS, size=(batch,)).astype(np.int64)
+    crops = np.stack([jitter_crop(make_identity_crop(identities[l], rng, difficulty="mix"), rng)
+                      for l in labels])
+    ms = (time.perf_counter() - t) * 1e3
+    return np.clip(np.rint(crops), 0, 255).astype(np.uint8), labels, ms
+
+
+def busy_ms(fn, n: int, top: int = 4) -> tuple[float | None, list]:
+    """Device-busy ms a call over n calls of fn from a torch.profiler trace
+    (the union of the card's kernel and copy intervals, device_busy_ms's
+    recipe), and the `top` kernels by device ms a call, with their share of
+    the busy time; (None, []) when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # the optimizer's record_function ranges appear on the device's timeline
+    # too, spanning its kernels and the gaps between them: not device work
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("Optimizer.")]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    if not spans:
+        return None, []
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return busy / 1e3 / n, [(name[:48], t / 1e3 / n, t / busy) for name, t in ranked]
+
+
+def timed_steps(step, steps: int, warm: int) -> dict:
+    """Run step() `steps` times, each between CUDA events and then
+    synchronized; the medians after `warm` steps on both clocks."""
+    dev_ms, host_ms = [], []
+    for _ in range(steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        step()
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        dev_ms.append(e0.elapsed_time(e1))
+    return dict(ms=float(np.median(dev_ms[warm:])), host_ms=float(np.median(host_ms[warm:])))
+
+
+def step_work(step, n_params: int, in_bytes: int, opt_buffers: int) -> dict:
+    """FLOPs of one step as FlopCounterMode counts them (forward and
+    backward), the bytes it must move at least (the batch read once; each
+    parameter read by the forward, its gradient written by the backward,
+    parameter, gradient and optimizer buffers read and parameter and buffers
+    written by the update), and the bound: the larger of the FLOPs over the
+    bf16 peak and the bytes over the memory rate."""
+    with FlopCounterMode(display=False) as fc:
+        step()
+    torch.cuda.synchronize()
+    flops = float(fc.get_total_flops())
+    nbytes = in_bytes + 4 * n_params * (1 + 1 + (2 + opt_buffers) + (1 + opt_buffers))
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=max(tb, to) * 1e3,
+                bound_by="bytes" if tb >= to else "operations")
+
+
+def train_run(trainer, step, losses, n_params: int, in_bytes: int, opt_buffers: int,
+              images: int) -> dict:
+    """Time TRAIN_STEPS steps, check the loss falls, count the work, trace
+    the device-busy time; `losses()` reads the run's losses."""
+    t = timed_steps(step, TRAIN_STEPS, TRAIN_WARM)
+    got = losses()
+    if not (np.isfinite(got).all() and got[-1] < got[0]):
+        raise AssertionError(f"{type(trainer).__name__}: the loss did not fall: {got}")
+    work = step_work(step, n_params, in_bytes, opt_buffers)
+    busy, top = busy_ms(step, 2)
+    return dict(**t, **work, loss=(float(got[0]), float(got[-1])), busy_ms=busy, top=top,
+                idle=None if busy is None else 1 - busy / t["host_ms"],
+                share=work["bound_ms"] / t["ms"], images_per_s=images / t["host_ms"] * 1e3,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def run_arcface_train(dev, arch: str, batch: int) -> dict:
+    """ArcFace on one fixed batch at the tool's settings: step ms, images/s,
+    FLOPs, bound, its share, device-busy ms and idle share, peak memory."""
+    from frp_tpu_torch.train.arcface import ArcFaceTrainer, leaves
+
+    crops, labels, render_ms = arcface_batch(batch, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    tr = ArcFaceTrainer(num_classes=TRAIN_IDS, seed=SEED, learning_rate=TRAIN_LR, arch=arch,
+                        margin=0.5, device=dev)
+    x, y = torch.from_numpy(crops).to(dev), torch.from_numpy(labels).to(dev)
+
+    def losses():
+        return [e["loss"] for e in tr.flush_metrics()]
+
+    out = train_run(tr, lambda: tr.train_step(x, y, sync=False), losses,
+                    sum(p.numel() for p in leaves(tr.state["params"])), crops.nbytes, 1, batch)
+    tr.flush_metrics()
+    return dict(out, render_ms=render_ms, trainer=tr, crops=crops, labels=labels)
+
+
+def run_spoof_train(dev) -> dict:
+    from frp_tpu_torch.tools.pretrain_spoof import make_spoof_batch
+    from frp_tpu_torch.train.arcface import leaves
+    from frp_tpu_torch.train.classifier import SpoofTrainer
+    from frp_tpu_torch.train.synthetic import make_identity
+
+    t = time.perf_counter()
+    crops, labels = make_spoof_batch([make_identity(s) for s in range(32)],
+                                     np.random.default_rng(SEED), TRAIN_BATCH)
+    render_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    tr = SpoofTrainer(seed=SEED, learning_rate=1e-3, device=dev)
+    x, y = torch.from_numpy(crops).to(dev), torch.from_numpy(labels).long().to(dev)
+    out = train_run(tr, lambda: tr.train_step(x, y), lambda: [e["loss"] for e in tr.history],
+                    sum(p.numel() for p in leaves(tr.state["params"])), crops.nbytes, 2, TRAIN_BATCH)
+    return dict(out, render_ms=render_ms)
+
+
+def run_detector_train(dev) -> dict:
+    from frp_tpu_torch.train.arcface import leaves
+    from frp_tpu_torch.train.detector import DetectorTrainer
+    from frp_tpu_torch.train.synthetic import make_batch
+
+    det, b = DET_TRAIN
+    t = time.perf_counter()
+    imgs, boxes, ldms, valid = make_batch(b, det, np.random.default_rng(SEED), difficulty="mix")
+    render_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    tr = DetectorTrainer(det_size=det, seed=SEED, learning_rate=1e-3, device=dev)
+    batch = [torch.from_numpy(a).to(dev) for a in (imgs, boxes, ldms, valid)]
+    out = train_run(tr, lambda: tr.train_step(*batch), lambda: [e["loss"] for e in tr.history],
+                    sum(p.numel() for p in leaves(tr.state["params"])), imgs.nbytes, 2, b)
+    return dict(out, render_ms=render_ms)
+
+
+def _tree_of(tr, fn):
+    """The trainer's parameter tree with fn(param) at each leaf."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items() if not k.startswith("_")}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return None if node is None else fn(node)
+    return walk(tr.state["params"])
+
+
+def _flat_numpy(tree) -> dict:
+    from frp_tpu_torch.models.params import flatten_params
+
+    return {k: v.detach().cpu().numpy() for k, v in flatten_params(tree).items()}
+
+
+def train_parity(dev, names=None) -> dict:
+    """One step of each trainer at f32 (TF32 off) on dev and on the CPU from
+    the same seed and batch: the loss within 1e-4 relative, the accuracy
+    equal, every updated parameter and running stat within 1e-4 absolute;
+    each optimizer buffer (the step's gradient, its square for AdamW) within
+    2e-2 of its leaf's L2 norm plus 1e-3 of the tree's largest entry, as
+    tests/test_torch_train.py holds the ArcFace momentum against JAX. At a
+    learning rate of 1e-4 for ArcFace: its f32 gradient at a random init is
+    ill-conditioned (the port's f32 step moves up to 6 % of a leaf's update
+    from its f64 step), so a larger step would move the parameters apart by
+    more than the bound. Returns the max errors by trainer (those of
+    `names`, or all)."""
+    from frp_tpu_torch.tools.pretrain_spoof import make_spoof_batch
+    from frp_tpu_torch.train.arcface import ArcFaceTrainer
+    from frp_tpu_torch.train.classifier import SpoofTrainer
+    from frp_tpu_torch.train.detector import DetectorTrainer
+    from frp_tpu_torch.train.synthetic import make_batch, make_identity
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    crops, labels, _ = arcface_batch(PARITY_BATCH, SEED + 1)
+    spoof = make_spoof_batch([make_identity(s) for s in range(32)], np.random.default_rng(SEED + 2),
+                             PARITY_BATCH)
+    det = make_batch(4, DET_TRAIN[0], np.random.default_rng(SEED + 3), difficulty="mix")
+    cases = {
+        "arcface_mobilefacenet": (lambda d: ArcFaceTrainer(
+            num_classes=TRAIN_IDS, seed=SEED, learning_rate=PARITY_LR["arcface"],
+            compute_dtype="float32", device=d), (crops, labels), ("momentum_buffer",)),
+        "arcface_iresnet18": (lambda d: ArcFaceTrainer(
+            num_classes=TRAIN_IDS, seed=SEED, learning_rate=PARITY_LR["arcface"],
+            compute_dtype="float32", arch="iresnet18", device=d), (crops, labels), ("momentum_buffer",)),
+        "spoof": (lambda d: SpoofTrainer(seed=SEED, learning_rate=PARITY_LR["adamw"],
+                                         compute_dtype="float32", device=d), spoof,
+                  ("exp_avg", "exp_avg_sq")),
+        "detector": (lambda d: DetectorTrainer(det_size=DET_TRAIN[0], seed=SEED,
+                                               learning_rate=PARITY_LR["adamw"],
+                                               compute_dtype="float32", device=d), det,
+                     ("exp_avg", "exp_avg_sq")),
+    }
+    out = {}
+    for name, (make, batch, buffers) in cases.items():
+        if names is not None and name not in names:
+            continue
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            tr = make(d)
+            m = tr.train_step(*batch)
+            bufs = {key: _flat_numpy(_tree_of(tr, lambda p: tr.optimizer.state[p][key]))
+                    for key in buffers}
+            runs.append((m, _flat_numpy(tr.state["params"]), bufs))
+        (mg, pg, bg), (mw, pw, bw) = runs
+        if abs(mg["loss"] - mw["loss"]) > 1e-4 * abs(mw["loss"]) or \
+                mg.get("accuracy") != mw.get("accuracy"):
+            raise AssertionError(f"{name}: {mg} on {dev}, {mw} on the CPU")
+        lr = PARITY_LR["arcface" if name.startswith("arcface") else "adamw"]
+        errs = dict(loss_rel=abs(mg["loss"] - mw["loss"]) / abs(mw["loss"]), params=0.0)
+        # AdamW's first update is lr * g / (|g| + eps), +-lr whatever |g|: an
+        # element whose gradient the two devices disagree on by more than
+        # half its size (the f32 floor: 1e-6 noise on the input moves 174-277
+        # of the detector's 433,200 so), or whose gradient on either device
+        # is within 100 eps of zero (where g / (|g| + eps) still moves with
+        # |g|), may land up to 2 lr apart; exp_avg is 0.1 g after one step
+        undetermined = {
+            k: (np.abs(bg["exp_avg"][k] - w) > 0.5 * np.abs(w))
+            | (np.minimum(np.abs(bg["exp_avg"][k]), np.abs(w)) < 1e-7)
+            for k, w in bw["exp_avg"].items()} if "exp_avg" in bw else {}
+        loose, worst = 0, None
+        for k, w in pw.items():
+            diff = np.abs(pg[k] - w)
+            if k in undetermined:
+                u = undetermined[k]
+                loose += int((u & (diff > 1e-4)).sum())
+                if (diff[u] > 2 * lr + 1e-6).any():
+                    raise AssertionError(f"{name} {k}: an element moved past 2 lr")
+                diff = np.where(u, 0.0, diff)
+            if float(diff.max()) > errs["params"]:
+                i = np.unravel_index(int(diff.argmax()), diff.shape)
+                errs["params"], worst = float(diff.max()), (k, i, *(
+                    float(b[key][k][i]) for b in (bg, bw) for key in b))
+        errs["loose"] = loose  # elements held within 2 lr only
+        if errs["params"] > 1e-4 or loose > 1e-3 * sum(v.size for v in pw.values()):
+            raise AssertionError(f"{name}: parameters {errs['params']:.3g} apart ({loose} loose); "
+                                 f"the worst element and its buffers on {dev} and the CPU: {worst}")
+        for key in buffers:  # each leaf within 2e-2 of its L2 norm + 1e-3 of the largest entry
+            top = max(float(np.abs(v).max()) for v in bw[key].values())
+            worst = 0.0
+            for k, w in bw[key].items():
+                err = float(np.linalg.norm(bg[key][k] - w) / (np.linalg.norm(w) + 1e-3 * top))
+                worst = max(worst, err)
+                if err > 2e-2:
+                    raise AssertionError(f"{name} {key} {k}: {err:.3g} of its L2 norm")
+            errs[key] = worst
+        out[name] = errs
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's default
+    return out
+
+
+def run_trained_serving(dev, scenes: np.ndarray, trained, default_eng: RecognitionEngine) -> dict:
+    """The trained MobileFaceNet saved with save_params beside the shipped
+    detector and spoof weights; an engine on them: process_frames over the
+    8 scenes (valid and count equal to the default engine's: the detector is
+    the same; kernels 1 and 2 launched once), then train.pairs.embed_scenes
+    through it."""
+    from frp_tpu_torch.models.params import save_params
+    from frp_tpu_torch.train.pairs import embed_scenes
+
+    wd = tempfile.mkdtemp(prefix="frp_trained_")
+    try:
+        save_params(os.path.join(wd, "mobilefacenet.npz"), trained.embedder_params())
+        for name in ("retinaface_synthetic.npz", "spoof.npz"):
+            shutil.copy(os.path.join("weights", name), os.path.join(wd, name))
+        eng = RecognitionEngine(load_config(**PROFILE, weights_dir=wd), device=dev)
+        if eng.weights_loaded["embedder"] != os.path.join(wd, "mobilefacenet.npz"):
+            raise AssertionError(f"the engine loaded {eng.weights_loaded}")
+        batch = tick_batch(scenes, TICKS)
+        want = default_eng.process_frames(batch, fmt="yuv420")
+        reset_launches()
+        got = eng.process_frames(batch, fmt="yuv420")
+        once = launches()
+        if dev.type == "cuda" and once != {"detection_head": 1, "warp_crops": 1, "greedy_nms": 0}:
+            raise AssertionError(f"process_frames launched {once}")
+        for key in ("valid", "count"):
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"the trained embedder's engine differs in {key}")
+        v = got["valid"]
+        emb = got["embeddings"][v]
+        if not (np.isfinite(emb).all() and np.allclose(np.linalg.norm(emb, axis=-1), eng.distance_scale,
+                                                        rtol=1e-2)):
+            raise AssertionError("the trained embedder's embeddings are not unit-scale")
+        bgr = [np.ascontiguousarray(s[..., ::-1]) for s in scenes]
+        embs, labels = embed_scenes(eng, bgr, np.arange(len(bgr)))
+        if embs.shape != (len(labels), 128) or len(labels) < len(bgr) - 2:
+            raise AssertionError(f"embed_scenes: {embs.shape} for {len(labels)} of {len(bgr)} scenes")
+        # the default engine's embeddings differ: the trained weights served
+        moved = float(np.abs(emb - want["embeddings"][v]).max())
+        if moved < 1e-3:
+            raise AssertionError("the trained engine's embeddings equal the shipped weights'")
+        return dict(faces=int(v.sum()), scenes=len(labels), launches=launches(), moved=moved,
+                    scale=eng.distance_scale)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+
+
+def run_fl_producer(dev, steps: int = 5, client_args: tuple = ()) -> dict:
+    """Two fl_client runs on dev upload their weights_delta to the port's
+    server, the second asks for the aggregate: the global model equals the
+    numpy mean of the two deltas bit for bit, under the JAX package's layer
+    names (frp_tpu/train/arcface.py::_flatten_tree's, which
+    train.arcface.flatten_tree gives)."""
+    from frp_tpu_torch.models.mobilefacenet import init_mobilefacenet
+    from frp_tpu_torch.tools import fl_client
+    from frp_tpu_torch.train.arcface import flatten_tree
+
+    tmp = tempfile.mkdtemp(prefix="frp_fl_")
+    router, sio, ctx, _ = platform_app(dev, os.path.join(tmp, "data"))
+    port, stop = start_server(router, sio)
+    try:
+        t = time.perf_counter()
+        runs = [fl_client.main(["--url", f"http://127.0.0.1:{port}", "--client-id", c,
+                                "--steps", str(steps), "--seed", str(s), "--device", dev.type,
+                                *client_args] + (["--aggregate"] if c == "site_b" else []))
+                for s, c in ((1, "site_a"), (2, "site_b"))]
+        seconds = time.perf_counter() - t
+        status, model = asyncio.run(http_get(port, "/face/fl/global_model"))
+    finally:
+        stop()
+        ctx.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    names = set(flatten_tree(init_mobilefacenet(0)))
+    a, b = runs[0]["delta"], runs[1]["delta"]
+    if status != 200 or set(a) != names or set(b) != names or set(model["weights"]) != names:
+        raise AssertionError(f"FL: status {status}, layer names differ from the JAX package's")
+    if runs[1]["aggregate"].get("status") != "success":
+        raise AssertionError(f"FL aggregate: {runs[1]['aggregate']}")
+    for k in names:
+        mean = np.asarray(a[k], np.float64) * 0.5 + np.asarray(b[k], np.float64) * 0.5
+        if not np.array_equal(np.asarray(model["weights"][k]), mean):
+            raise AssertionError(f"the FL global model's {k} is not the numpy mean of the deltas")
+    return dict(layers=len(names), params=int(sum(v.size for v in a.values())), seconds=seconds,
+                losses=[[h["loss"] for h in r["history"]] for r in runs])
+
+
+def run_train(dev, scenes: np.ndarray, default_eng: RecognitionEngine,
+              fl_args: tuple = ()) -> dict:
+    """Phase 12: the three trainers at full width, their parity with the CPU,
+    the trained embedder serving, the FL producer (`fl_args` are extra
+    fl_client arguments, for a rehearsal on the CPU only)."""
+    reset_launches()
+    seconds, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        seconds[name], t = time.perf_counter() - t, time.perf_counter()
+
+    arc = {"mobilefacenet": run_arcface_train(dev, "mobilefacenet", TRAIN_BATCH),
+           "iresnet18": run_arcface_train(dev, "iresnet18", TRAIN_BATCH),
+           f"iresnet18_b{BIG_BATCH}": run_arcface_train(dev, "iresnet18", BIG_BATCH)}
+    lap("arcface")
+    spoof, det = run_spoof_train(dev), run_detector_train(dev)
+    lap("spoof and detector")
+    parity = train_parity(dev)
+    lap("parity")
+    serve = run_trained_serving(dev, scenes, arc["mobilefacenet"]["trainer"], default_eng)
+    lap("serving")
+    fl = run_fl_producer(dev, client_args=fl_args)
+    lap("FL")
+    return dict(arcface=arc, spoof=spoof, detector=det, parity=parity, serve=serve, fl=fl,
+                launches=launches(), seconds=seconds)
+
+
 # --- main --------------------------------------------------------------------
 
 def gpu_name_and_limit() -> str:
@@ -1846,7 +2248,50 @@ def main() -> int:
     say("services", f"bf16 video verdicts: {srv['bf16']['verdicts'][0]} on cuda, "
         f"{srv['bf16']['verdicts'][1]} on cpu; phase 11 took {time.perf_counter() - t_services:.1f} s")
 
-    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped, plat, srv))
+    t_train = time.perf_counter()
+    tr = run_train(dev, scenes, scan["engine"])
+    for name, r in tr["arcface"].items():
+        say("train", f"ArcFace {name}, bf16, {TRAIN_IDS} identities, batch "
+            f"{BIG_BATCH if name.endswith(f'b{BIG_BATCH}') else TRAIN_BATCH}, lr {TRAIN_LR}, margin 0.5, one fixed "
+            f"batch ({r['render_ms']:.1f} ms to render on the host): loss {r['loss'][0]:.3f} -> "
+            f"{r['loss'][1]:.3f} over {TRAIN_STEPS} steps")
+        say("train", f"ArcFace {name}: step {r['ms']:.2f} ms (CUDA events, median after {TRAIN_WARM}), "
+            f"{r['host_ms']:.2f} ms (synchronized host clock); {r['images_per_s']:.0f} images/s; "
+            f"{r['flops'] / 1e12:.4f} TFLOP a step (FlopCounterMode, forward and backward), "
+            f"{r['bytes'] / 1e6:.1f} MB; bound {r['bound_ms']:.3f} ms by {r['bound_by']} (bf16 989 "
+            f"TFLOP/s, 3.35 TB/s), {100 * r['share']:.1f} % of it; device busy "
+            + ("not measured" if r["busy_ms"] is None else
+               f"{r['busy_ms']:.2f} ms a step (torch.profiler), idle {r['idle']:.2f}")
+            + f"; peak memory {r['peak_gb']:.2f} GB; on {smi}")
+        say("train", f"ArcFace {name}: top kernels (device ms a step, share of busy) "
+            + "; ".join(f"{k} {ms:.2f} ({100 * sh:.0f} %)" for k, ms, sh in r["top"]))
+    for name in ("spoof", "detector"):
+        r = tr[name]
+        say("train", f"{name} trainer ({'batch 64 at 112' if name == 'spoof' else 'det 320, batch 16, mix'}"
+            f", {r['render_ms']:.0f} ms to render): loss {r['loss'][0]:.3f} -> {r['loss'][1]:.3f} over "
+            f"{TRAIN_STEPS} steps; step {r['ms']:.2f} ms (events), {r['host_ms']:.2f} ms (host); "
+            f"{r['flops'] / 1e12:.4f} TFLOP, bound {r['bound_ms']:.3f} ms by {r['bound_by']}, "
+            f"{100 * r['share']:.2f} % of it; device busy "
+            + ("not measured" if r["busy_ms"] is None else f"{r['busy_ms']:.2f} ms, idle {r['idle']:.2f}")
+            + f"; peak memory {r['peak_gb']:.2f} GB; top kernels "
+            + "; ".join(f"{k} {ms:.2f} ({100 * sh:.0f} %)" for k, ms, sh in r["top"]))
+    for name, e in tr["parity"].items():
+        say("train", f"parity f32, TF32 off, {name}: one step on cuda and on the cpu, max errors "
+            + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+    sv = tr["serve"]
+    say("train", f"the trained MobileFaceNet (save_params) served: process_frames over {FRAMES} "
+        f"scenes, {sv['faces']} faces, valid and count equal to phase 4's engine, kernels 1 and 2 "
+        f"once; embed_scenes embedded {sv['scenes']} of {FRAMES} scenes; embeddings moved "
+        f"{sv['moved']:.3f} from the shipped weights'; launches {sv['launches']}")
+    fl = tr["fl"]
+    say("train", f"FL: two fl_client runs (5 steps each) uploaded {fl['layers']} layers "
+        f"({fl['params']} values) each to the port's server; the aggregate equals the numpy mean "
+        f"bit for bit under the JAX layer names; {fl['seconds']:.1f} s; losses "
+        + "; ".join(", ".join(f"{x:.2f}" for x in l) for l in fl["losses"])
+        + f"; phase 12 took {time.perf_counter() - t_train:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in tr["seconds"].items()) + ")")
+
+    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped, plat, srv, tr))
               for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -21,8 +21,8 @@ through decode + ``nms_padded_batched``, whose greedy pass is kernel 3
 (``ops/nms_cuda.py``). Everything is shape-static: M = max_faces slots per
 frame with validity masks.
 
-Not ported yet (ROADMAP): ONNX/.pth import, mesh sharding, iresnet
-training, ``build_pipeline``'s ``with_spoof=False``, ``with_quality=False``
+Not ported yet (ROADMAP): ONNX/.pth import, mesh sharding,
+``build_pipeline``'s ``with_spoof=False``, ``with_quality=False``
 and ``spoof_size``, and the engine's ``with_spoof=False``, which no caller
 of the port sets.
 """

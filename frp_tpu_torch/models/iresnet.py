@@ -1,6 +1,7 @@
-"""IResNet embedder in PyTorch (port of ``frp_tpu/models/iresnet.py``,
-inference only): ArcFace's improved ResNet at 112x112, iresnet18/34/50/100,
-the embedder of the accuracy profile.
+"""IResNet embedder in PyTorch (port of ``frp_tpu/models/iresnet.py``):
+ArcFace's improved ResNet at 112x112, iresnet18/34/50/100, the embedder of
+the accuracy profile. ``train=True`` runs BN on the batch's statistics for
+the ArcFace step.
 
 Block: BN, 3x3 conv, BN, PReLU, 3x3 conv carrying the stride, BN; a 1x1 conv
 (+BN) with the stride on the shortcut where the shape changes. Head: BN, a
@@ -38,15 +39,21 @@ def _block_init(rng, cin, cout, stride):
     return p
 
 
-def _block(p, x, stride):
-    y = nn.batch_norm(p["bn1"], x)
-    y = nn.conv(p["conv1"], y)
-    y = nn.batch_norm(p["bn2"], y)
-    y = nn.prelu(p["prelu"], y)
-    y = nn.conv(p["conv2"], y, stride=stride)
-    y = nn.batch_norm(p["bn3"], y)
+def _bn(p: dict, name: str, y: torch.Tensor, stats: dict | None, path: tuple) -> torch.Tensor:
+    """The bare BN unit p[name]: folded, or (with ``stats``) batch
+    statistics, its new running stats stored under path + (name,)."""
+    if stats is None:
+        return nn.batch_norm(p[name], y)
+    y, stats[path + (name,)] = nn.batch_norm(p[name], y, train=True)
+    return y
+
+
+def _block(p, x, stride, stats=None, path=()):
+    y = nn.conv(p["conv1"], _bn(p, "bn1", x, stats, path))
+    y = nn.prelu(p["prelu"], _bn(p, "bn2", y, stats, path))
+    y = _bn(p, "bn3", nn.conv(p["conv2"], y, stride=stride), stats, path)
     if "down_conv" in p:
-        x = nn.batch_norm(p["down_bn"], nn.conv(p["down_conv"], x, stride=stride))
+        x = _bn(p, "down_bn", nn.conv(p["down_conv"], x, stride=stride), stats, path)
     return x + y
 
 
@@ -77,24 +84,25 @@ def init_iresnet(rng_or_seed=0, variant: str = "iresnet18", embed_dim: int = 128
 
 
 def iresnet_forward(params: dict, x: torch.Tensor, normalize: bool = True,
-                    train: bool = False) -> torch.Tensor:
+                    train: bool = False):
     """x: [B, 112, 112, 3] normalized crops, NHWC, any float dtype. Returns
-    [B, D] float32 embeddings (L2-normalized unless normalize=False).
-    Training (batch statistics) is not ported yet and raises."""
-    if train:
-        raise NotImplementedError(
-            "iresnet_forward(train=True): training is not ported yet (ROADMAP "
-            "Queue 1, training)")
+    [B, D] float32 embeddings (L2-normalized unless normalize=False). With
+    train=True returns (embeddings, bn_stats): bn_stats maps param-tree paths
+    whose last element names a bare BN unit (("stages", 0, 1, "bn2"),
+    ("head_bn",), ...) to its updated running stats, as
+    ``frp_tpu/models/iresnet.py``."""
+    stats: dict | None = {} if train else None
     y = nn.conv(params["stem"], x.permute(0, 3, 1, 2))
-    y = nn.batch_norm(params["stem_bn"], y)
-    y = nn.prelu(params["stem_prelu"], y)
-    for stage in params["stages"]:
+    y = nn.prelu(params["stem_prelu"], _bn(params, "stem_bn", y, stats, ()))
+    for si, stage in enumerate(params["stages"]):
         for b, block in enumerate(stage):
-            y = _block(block, y, 2 if b == 0 else 1)
-    y = nn.batch_norm(params["head_bn"], y)
+            y = _block(block, y, 2 if b == 0 else 1, stats, ("stages", si, b))
+    y = _bn(params, "head_bn", y, stats, ())
     # the activations are logically NCHW, so a reshape flattens in (c, h, w)
     # order, the order the fc's inputs index (the JAX package transposes its
     # NHWC map to NCHW first); reshape copies a channels-last map as needed
     emb = nn.dense(params["fc"], y.reshape(y.shape[0], -1)).to(torch.float32)
-    emb = nn.batch_norm(params["feat_bn"], emb)
-    return nn.l2_normalize(emb) if normalize else emb
+    emb = _bn(params, "feat_bn", emb, stats, ())  # 1-D feature BN
+    if normalize:
+        emb = nn.l2_normalize(emb)
+    return (emb, stats) if train else emb

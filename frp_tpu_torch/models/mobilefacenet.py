@@ -1,7 +1,9 @@
 """MobileFaceNet embedder in PyTorch (port of
-``frp_tpu/models/mobilefacenet.py``, inference only): 112x112 crops ->
-L2-normalized embeddings, PReLU throughout, a linear 7x7 ``VALID`` depthwise
-GDConv head."""
+``frp_tpu/models/mobilefacenet.py``): 112x112 crops -> L2-normalized
+embeddings, PReLU throughout, a linear 7x7 ``VALID`` depthwise GDConv head.
+The same forward serves inference (BN folded) and training (``train=True``
+returns the batch-statistics BN's updated running stats beside the
+embeddings, for the ArcFace step)."""
 
 from __future__ import annotations
 
@@ -30,12 +32,21 @@ def _bottleneck_init(rng, cin, cout, t):
     }
 
 
-def _bottleneck(p, x, stride, residual):
-    y = nn.conv_bn(p["expand"], x)
+def _bn(block: dict, y: torch.Tensor, stats: dict | None, path: tuple) -> torch.Tensor:
+    """A conv_bn node's BN: folded, or (with ``stats``) batch statistics,
+    the node's new running stats stored under ``path``."""
+    if stats is None:
+        return nn.batch_norm(block["bn"], y)
+    y, stats[path] = nn.batch_norm(block["bn"], y, train=True)
+    return y
+
+
+def _bottleneck(p, x, stride, residual, stats=None, path=()):
+    y = _bn(p["expand"], nn.conv(p["expand"]["conv"], x), stats, path + ("expand",))
     y = nn.prelu(p["expand_prelu"], y)
-    y = nn.conv_bn(p["dw"], y, stride=stride, groups=y.shape[1])
-    y = nn.prelu(p["dw_prelu"], y)
-    y = nn.conv_bn(p["project"], y)
+    y = nn.conv(p["dw"]["conv"], y, stride=stride, groups=y.shape[1])
+    y = nn.prelu(p["dw_prelu"], _bn(p["dw"], y, stats, path + ("dw",)))
+    y = _bn(p["project"], nn.conv(p["project"]["conv"], y), stats, path + ("project",))
     return x + y if residual else y
 
 
@@ -62,27 +73,36 @@ def init_mobilefacenet(rng_or_seed=0, embed_dim: int = 128) -> dict:
     return params
 
 
-def mobilefacenet_forward(params: dict, x: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+def mobilefacenet_forward(params: dict, x: torch.Tensor, train: bool = False,
+                          normalize: bool = True):
     """x: [B, 112, 112, 3] normalized crops ((v-127.5)/128), NHWC, any float
     dtype. Returns [B, D] float32 embeddings (L2-normalized unless
-    normalize=False)."""
-    y = nn.conv_bn(params["stem"], x.permute(0, 3, 1, 2), stride=2)
-    y = nn.prelu(params["stem_prelu"], y)
-    y = nn.conv_bn(params["dw1"], y, groups=64)
-    y = nn.prelu(params["dw1_prelu"], y)
+    normalize=False). With train=True returns (embeddings, bn_stats):
+    bn_stats maps the tuple paths of ``frp_tpu/models/mobilefacenet.py``
+    (("stem",), ("blocks", 3, "dw"), ...: each a conv_bn node) to its updated
+    running stats."""
+    stats: dict | None = {} if train else None
+    y = nn.conv(params["stem"]["conv"], x.permute(0, 3, 1, 2), stride=2)
+    y = nn.prelu(params["stem_prelu"], _bn(params["stem"], y, stats, ("stem",)))
+    y = nn.conv(params["dw1"]["conv"], y, groups=64)
+    y = nn.prelu(params["dw1_prelu"], _bn(params["dw1"], y, stats, ("dw1",)))
 
     i = 0
     cin = 64
     for t, c, n, s in _BOTTLENECKS:
         for j in range(n):
             stride = s if j == 0 else 1
-            y = _bottleneck(params["blocks"][i], y, stride, stride == 1 and cin == c)
+            y = _bottleneck(params["blocks"][i], y, stride, stride == 1 and cin == c,
+                            stats, ("blocks", i))
             cin = c
             i += 1
 
-    y = nn.conv_bn(params["conv_head"], y)
+    y = _bn(params["conv_head"], nn.conv(params["conv_head"]["conv"], y), stats, ("conv_head",))
     y = nn.prelu(params["head_prelu"], y)
-    y = nn.conv_bn(params["gdconv"], y, groups=512, padding="VALID")
-    y = nn.conv_bn(params["embed"], y)
+    y = nn.conv(params["gdconv"]["conv"], y, groups=512, padding="VALID")
+    y = _bn(params["gdconv"], y, stats, ("gdconv",))
+    y = _bn(params["embed"], nn.conv(params["embed"]["conv"], y), stats, ("embed",))
     emb = y.reshape(y.shape[0], -1).to(torch.float32)
-    return nn.l2_normalize(emb) if normalize else emb
+    if normalize:
+        emb = nn.l2_normalize(emb)
+    return (emb, stats) if train else emb

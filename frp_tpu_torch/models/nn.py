@@ -13,7 +13,14 @@ Conventions:
   * Weights are f32 masters cast to the activation dtype at use; the cast
     and the folded BN scale/shift are cached per dtype inside the layer's
     parameter dict (keys ``_cast`` and ``_folded``), so a forward launches no
-    per-layer parameter arithmetic after the first call.
+    per-layer parameter arithmetic after the first call. A tensor that
+    requires grad (a weight being trained) is cast and folded anew on every
+    call, so the result follows the optimizer's in-place updates and the
+    gradient reaches the master.
+  * BatchNorm is inference-mode by default (scale and shift folded from the
+    running stats); ``train=True`` normalises with the batch's statistics and
+    returns the updated running stats beside the output, as the JAX
+    package's training step expects.
   * Conv padding follows XLA ``SAME`` (a stride-2 conv on an even input pads
     (0, 1)), through an explicit ``F.pad`` where the two sides differ.
 """
@@ -94,6 +101,8 @@ def _cast(p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
     t = p[name]
     if t.dtype == dtype:
         return t
+    if t.requires_grad:
+        return t.to(dtype)
     cache = p.setdefault("_cast", {})
     got = cache.get((name, dtype))
     if got is None:
@@ -125,25 +134,47 @@ def conv(p: dict, x: torch.Tensor, stride: int = 1, padding: str = "SAME", group
     return out
 
 
-def batch_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Inference BN over x's channel axis: [B, C, H, W] (NCHW) or [B, C] (a
-    feature BN, as iresnet's ``feat_bn``). Scale and shift are folded from
-    the running stats in f32, then cast to x.dtype (as
-    ``frp_tpu/models/nn.py:121-124``), and shaped [C, 1, 1] or [C] for the
-    input's rank: a [C, 1, 1] fold against a [B, C] input would broadcast to
-    [C, B, C] without an error."""
+def batch_norm(p: dict, x: torch.Tensor, train: bool = False, momentum: float = 0.9,
+               eps: float = 1e-5):
+    """BN over x's channel axis: [B, C, H, W] (NCHW) or [B, C] (a feature BN,
+    as iresnet's ``feat_bn``).
+
+    Inference (the default): scale and shift are folded from the running
+    stats in f32, then cast to x.dtype (as ``frp_tpu/models/nn.py:121-124``),
+    and shaped [C, 1, 1] or [C] for the input's rank: a [C, 1, 1] fold against
+    a [B, C] input would broadcast to [C, B, C] without an error.
+
+    ``train=True`` returns (y, {"mean", "var"}) as ``frp_tpu/models/nn.py:
+    125-134``: y is normalised with the batch's mean and biased variance in
+    f32 and cast to x.dtype; the new running stats are ``momentum * old +
+    (1 - momentum) * batch``, in f32, with the biased variance.
+    ``F.batch_norm``'s own running update would take the unbiased variance
+    and weigh the old value by 1 - momentum, so it is given no running
+    stats and they are computed here, outside the graph (the JAX step reads
+    them as an auxiliary output, which its gradient does not reach)."""
     if x.dim() not in (2, 4):
         raise ValueError(f"batch_norm takes [B, C] or [B, C, H, W], got {tuple(x.shape)}")
-    cache = p.setdefault("_folded", {})
+    if train:
+        dims = (0, 2, 3) if x.dim() == 4 else (0,)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.to(torch.float32), dim=dims, correction=0)
+            new = {"mean": momentum * p["mean"] + (1 - momentum) * mean,
+                   "var": momentum * p["var"] + (1 - momentum) * var}
+        # f32 statistics and arithmetic whatever x's dtype, one rounding to it
+        y = F.batch_norm(x, None, None, p["gamma"], p["beta"], True, 0.0, eps)
+        return y, new
+    trained = p["var"].requires_grad or p["gamma"].requires_grad
     key = (x.dtype, x.dim())
-    folded = cache.get(key)
+    folded = None if trained else p.get("_folded", {}).get(key)
     if folded is None:
         r = torch.rsqrt(p["var"] + eps)
         scale = (p["gamma"] * r).to(x.dtype)
         shift = (p["beta"] - p["mean"] * p["gamma"] * r).to(x.dtype)
         if x.dim() == 4:
             scale, shift = scale[:, None, None], shift[:, None, None]
-        folded = cache[key] = (scale, shift)
+        folded = (scale, shift)
+        if not trained:
+            p.setdefault("_folded", {})[key] = folded
     scale, shift = folded
     return x * scale + shift
 
@@ -157,16 +188,35 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 
 
+_CONSTS: dict = {}  # (device, dtype, value) -> 0-d tensor, made once
+
+
+def _const(x: torch.Tensor, value: float) -> torch.Tensor:
+    key = (x.device, x.dtype, value)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(value, dtype=x.dtype, device=x.device)
+    return t
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip: a max, then a min. At an exact tie with a bound the gradient
+    splits in half, as JAX's does (``torch.clamp`` would pass all of it): a
+    ReLU meets its bound at every exact zero, which a region of dead inputs
+    gives, so the training gradients follow JAX's only with this rule."""
+    return torch.minimum(torch.maximum(x, _const(x, lo)), _const(x, hi))
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, min=0)
+    return torch.maximum(x, _const(x, 0.0))
 
 
 def hswish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    return x * _clip(x + 3.0, 0.0, 6.0) / 6.0
 
 
 def hsigmoid(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    return _clip(x + 3.0, 0.0, 6.0) / 6.0
 
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -158,12 +158,28 @@ def test_engine_defaults_to_cuda_and_refuses_cpu_fallback():
 
 
 def test_accuracy_profile_not_ported_raises():
-    """The accuracy profile's engine builds on the shipped iresnet18; what is
-    still not ported of it is the embedder's training forward, which raises."""
+    """The accuracy profile's engine builds on the shipped iresnet18, and its
+    embedder's training forward (batch-statistics BN), once the part of the
+    profile not ported, equals the JAX package's on the same weights: the
+    embeddings and every BN unit's new running stats (atol 1e-4, as
+    tests/test_torch_iresnet.py holds the forward)."""
+    from frp_tpu.models.iresnet import iresnet_forward as j_iresnet_forward
+    from frp_tpu.models.params import load_params as j_load_params
+
     eng = RecognitionEngine(load_config(**KW, embedder_arch="iresnet18"), device="cpu")
     assert eng.weights_loaded["embedder"].endswith("iresnet18.npz")
-    with pytest.raises(NotImplementedError, match="training"):
-        iresnet_forward(eng.params["embedder"], torch.zeros((1, 112, 112, 3)), train=True)
+    imgs = np.stack([make_scene(112, np.random.default_rng(s), max_faces=1, portrait=True)[0]
+                     for s in (1, 2, 3, 4)])
+    x = (imgs.astype(np.float32) - 127.5) / 128.0
+    got, got_stats = iresnet_forward(eng.params["embedder"], torch.from_numpy(x), train=True)
+    want, want_stats = j_iresnet_forward(
+        j_load_params(os.path.join(REPO, "weights", "iresnet18.npz")), x, train=True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    assert set(got_stats) == set(want_stats) and ("head_bn",) in got_stats
+    for path, st in want_stats.items():
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(got_stats[path][k].numpy(), np.asarray(st[k]), rtol=1e-4,
+                                       atol=1e-4, err_msg=str(path))
 
 
 def _weights_copy(tmp_path):

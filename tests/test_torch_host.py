@@ -196,7 +196,10 @@ def test_port_imports_no_jax_nor_frp_tpu():
         "          'platform.face_service', 'platform.state', 'platform.tracking',\n"
         "          'platform.alerts', 'platform.health', 'platform.schemas',\n"
         "          'platform.dbops', 'utils.docstore', 'utils.crypto',\n"
-        "          'utils.thumbnail_cache', 'utils.profiling', 'utils.logger'):\n"
+        "          'utils.thumbnail_cache', 'utils.profiling', 'utils.logger',\n"
+        "          'train.arcface', 'train.classifier', 'train.detector', 'train.checkpoint',\n"
+        "          'train.synthetic', 'train.pairs', 'ops.anchor_targets', 'tools.fl_client',\n"
+        "          'tools.pretrain_embedder', 'tools.pretrain_spoof', 'tools.pretrain_synthetic'):\n"
         "    assert 'frp_tpu_torch.' + n in mods, n\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

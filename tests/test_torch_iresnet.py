@@ -50,11 +50,20 @@ def test_init_key_paths_and_shapes_equal_jax(variant):
 
 
 def test_unknown_variant_and_train_raise():
+    """An unknown variant raises; the training forward (train=True), which
+    raised before training was ported, returns the JAX package's embeddings
+    and running stats for the same weights and input."""
     with pytest.raises(ValueError, match="unknown variant"):
         t_init(0, variant="iresnet9")
-    p = convert_params(t_init(0))
-    with pytest.raises(NotImplementedError, match="training"):
-        t_fwd(p, torch.zeros((1, 112, 112, 3)), train=True)
+    tree = t_init(0)
+    x = np.random.default_rng(4).normal(0, 0.5, (4, 112, 112, 3)).astype(np.float32)
+    got, got_stats = t_fwd(convert_params(tree), torch.from_numpy(x), train=True)
+    want, want_stats = j_fwd(tree, x, train=True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    assert set(got_stats) == set(want_stats) and ("stages", 3, 1, "bn2") in got_stats
+    for path, st in want_stats.items():
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(got_stats[path][k].numpy(), np.asarray(st[k]), **TOL)
 
 
 @pytest.fixture(scope="module")

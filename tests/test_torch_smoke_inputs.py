@@ -160,3 +160,55 @@ def test_embed_bound_counts_the_rung(smoke, monkeypatch):
     assert on["slots"] == off["slots"] == off["rung"] == 64 and 0 < on["faces"] <= on["rung"] < 64
     assert on["flops"] * 64 == pytest.approx(off["flops"] * on["rung"], rel=1e-6)
     assert on["bytes"] < off["bytes"] and on["bound_by"] == "operations"
+
+
+class _CpuEvent:
+    """torch.cuda.Event's timing calls on the host clock."""
+
+    def __init__(self, **_):
+        self.t = None
+
+    def record(self):
+        import time
+
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def test_train_phase_runs_on_the_cpu(smoke, monkeypatch):
+    """Phase 12 at tiny sizes on the CPU (det 128, batch 4, 4 identities, 12
+    steps): each trainer's loss falls, the cuda-vs-cpu parity half runs (cpu
+    against cpu here), the trained embedder serves through an engine and
+    embed_scenes, and two fl_client runs aggregate through the port's server
+    to the numpy mean (times, device-busy shares and launches need the
+    card)."""
+    for name, value in (("TRAIN_IDS", 4), ("TRAIN_BATCH", 4), ("TRAIN_STEPS", 12), ("TRAIN_WARM", 1),
+                        ("BIG_BATCH", 8), ("DET_TRAIN", (128, 2)), ("PARITY_BATCH", 4), ("TICKS", 2),
+                        ("PROFILE", dict(smoke.PROFILE, det_size=128, max_faces_per_frame=4,
+                                         pre_nms_topk=64, det_conf_threshold=0.3))):
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", _CpuEvent)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(smoke, "busy_ms", lambda fn, n: (None, []))
+    app = smoke.platform_app
+    monkeypatch.setattr(smoke, "platform_app", lambda dev, d: app(
+        dev, d, det_size=128, max_faces_per_frame=4, pre_nms_topk=64))
+    dev = torch.device("cpu")
+    from frp_tpu_torch.config import load_config
+    from frp_tpu_torch.engine.pipeline import RecognitionEngine
+
+    scenes = smoke.render_scenes(2, 128, 0)
+    eng = RecognitionEngine(load_config(**smoke.PROFILE), device=dev)
+    out = smoke.run_train(dev, scenes, eng, fl_args=("--batch", "4", "--identities", "2"))
+    for r in (*out["arcface"].values(), out["spoof"], out["detector"]):
+        assert r["loss"][1] < r["loss"][0] and r["flops"] > 0 and r["bound_ms"] > 0
+        assert r["busy_ms"] is None and r["ms"] > 0
+    assert set(out["arcface"]) == {"mobilefacenet", "iresnet18", "iresnet18_b8"}
+    assert set(out["parity"]) == {"arcface_mobilefacenet", "arcface_iresnet18", "spoof", "detector"}
+    assert all(e["params"] == 0.0 for e in out["parity"].values())
+    assert out["serve"]["faces"] > 0 and out["serve"]["scenes"] >= 1
+    assert out["fl"]["layers"] > 50 and len(out["fl"]["losses"]) == 2
