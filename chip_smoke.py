@@ -136,8 +136,29 @@ Phases, each printed on its own lines, in order:
             equal to the numpy mean of the two deltas bit for bit under the
             JAX package's layer names.
 
+13. imported a site's own weights: a seeded w600k-style embedder.onnx
+            (iresnet50, 512-d, BN folded, numeric names shuffled, float32
+            raw_data) beside the shipped detector and spoof npz
+            ("mixed"), and with retinaface.onnx and spoof.onnx written from
+            the shipped npz ("onnx"). On the card, as child processes all at
+            once: import_real_weights --dry-run on the detector and spoof
+            exports (passes) and on the 512-d embedder (refused: embedders
+            are validated at 128-d, as the JAX tool does), calibrate_embedder
+            and tiered_eval over the mixed dir at 3 identities x 2 variants
+            (their defaults 24 x 6 and 20 x 4 cut), each with its wall time.
+            Meanwhile: both engines (iresnet50, 512-d, the rest as phase 4) at
+            f32 on cuda and on the CPU (phase 6's check, 4 slots, on scenes 5 and
+            6, which hold two faces each), the mixed
+            one at bf16 against the CPU at bf16 (phase 11's rule). Then (a)
+            the mixed engine over phase 4's stream with phase 4's checks and
+            numbers ("same" padding kept, scale 1.0), its compaction on
+            against off with the embed stage's FLOPs, bound and device-busy
+            share (phase 8's runs), and (b) the all-ONNX engine ("torch"
+            padding) over the same stream. Kernels 1 and 2 launch once a
+            batch; the padding mode is "same" again afterwards.
+
 Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9,
-10, 11 and 12 and read just after. Any failed check raises, so the run exits
+10, 11, 12 and 13 and read just after. Any failed check raises, so the run exits
 non-zero. The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
@@ -2040,6 +2061,198 @@ def run_train(dev, scenes: np.ndarray, default_eng: RecognitionEngine,
                 launches=launches(), seconds=seconds)
 
 
+# --- phase 13: a site's own weights -------------------------------------------
+
+IMPORTED = {**PROFILE, "embedder_arch": "iresnet50", "embed_dim": 512}
+W600K_SEED = 12
+# calibrate_embedder and tiered_eval at 3 identities x 2 variants (their
+# defaults 24 x 6 and 20 x 4 are minutes of rendering and scanning)
+TOOL_SIZE = ("--identities", "3", "--variants", "2")
+TOOL_TIMEOUT = 600
+PARITY_SCENES = [5, 6]  # the scenes of phase 13's f32 parity: two faces each at det 640
+
+
+def write_weights_dirs(root: str) -> dict:
+    """Two weights dirs under root. "mixed": a seeded w600k-style
+    embedder.onnx (iresnet50, 512-d, BN folded, numeric names shuffled,
+    float32 raw_data as torch.onnx writes it) beside the shipped detector and spoof npz.
+    "onnx": the same embedder.onnx with retinaface.onnx and spoof.onnx
+    written from the shipped npz (det-style and torchvision-style graphs).
+    Returns the dirs and the host seconds the writing took."""
+    from frp_tpu_torch.models.params import load_params
+    from frp_tpu_torch.testing import onnx_export as ox
+
+    t = time.perf_counter()
+    dirs = {k: os.path.join(root, k) for k in ("mixed", "onnx")}
+    for d in dirs.values():
+        os.makedirs(d)
+    emb = ox.w600k_style(seed=W600K_SEED, variant=IMPORTED["embedder_arch"],
+                         embed_dim=IMPORTED["embed_dim"], fp16=False)
+    for d in dirs.values():
+        with open(os.path.join(d, "embedder.onnx"), "wb") as f:
+            f.write(emb)
+    for name in ("retinaface_synthetic.npz", "spoof.npz"):
+        shutil.copy(os.path.join("weights", name), os.path.join(dirs["mixed"], name))
+    rng = np.random.default_rng(W600K_SEED)
+    det = ox.retinaface_graph(load_params(os.path.join("weights", "retinaface_synthetic.npz")), rng)
+    spoof = ox.mobilenetv3_graph(load_params(os.path.join("weights", "spoof.npz")), rng)
+    for name, data in (("retinaface.onnx", det), ("spoof.onnx", spoof)):
+        with open(os.path.join(dirs["onnx"], name), "wb") as f:
+            f.write(data)
+    return dict(dirs=dirs, write_s=time.perf_counter() - t, embedder_mb=len(emb) / 1e6)
+
+
+def start_tool(name: str, args: list, env: dict) -> dict:
+    """python -m frp_tpu_torch.tools.<name> in a child process from the
+    repository root, with a thread that collects its output and its wall
+    seconds when it exits (killed at TOOL_TIMEOUT)."""
+    proc = subprocess.Popen([sys.executable, "-m", f"frp_tpu_torch.tools.{name}", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    run = dict(name=name, t0=time.perf_counter())
+
+    def wait():
+        try:
+            run["out"], run["err"] = proc.communicate(timeout=TOOL_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            run["out"], run["err"] = proc.communicate()
+            run["timeout"] = True
+        run.update(rc=proc.returncode, seconds=time.perf_counter() - run["t0"])
+
+    run["thread"] = threading.Thread(target=wait, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def finish_tool(run: dict) -> dict:
+    """Wait for a start_tool child: its exit code, wall seconds and output."""
+    run["thread"].join()
+    if run.get("timeout"):
+        raise AssertionError(f"{run['name']} did not finish in {TOOL_TIMEOUT} s: {run['err'][-2000:]}")
+    return run
+
+
+def run_tools(dev, dirs: dict, tmp: str) -> list:
+    """Start the weights tools on dev, all at once: import_real_weights
+    --dry-run on the detector and spoof exports (passes) and on the 512-d
+    embedder (refused: the tool validates embedders at 128-d, as the JAX
+    package's does), calibrate_embedder and tiered_eval over the mixed dir
+    (WEIGHTS_DIR, EMBED_DIM=512) at TOOL_SIZE."""
+    env = dict(os.environ, WEIGHTS_DIR=dirs["mixed"], EMBED_DIM=str(IMPORTED["embed_dim"]))
+    env.pop("CONV_PADDING", None)
+    dev_arg = ["--device", dev.type]
+    arch = ["--arch", IMPORTED["embedder_arch"]]
+    onnx = dirs["onnx"]
+    return [
+        start_tool("import_real_weights", ["--detector", os.path.join(onnx, "retinaface.onnx"),
+                                           "--spoof", os.path.join(onnx, "spoof.onnx"),
+                                           "--dry-run", *dev_arg], env),
+        start_tool("import_real_weights", ["--embedder", os.path.join(onnx, "embedder.onnx"),
+                                           *arch, "--dry-run", *dev_arg], env),
+        start_tool("calibrate_embedder", [*arch, *TOOL_SIZE, *dev_arg,
+                                          "--out", os.path.join(tmp, "calibration.json")], env),
+        start_tool("tiered_eval", [*arch, *TOOL_SIZE, *dev_arg,
+                                   "--out", os.path.join(tmp, "tiered_eval.json")], env),
+    ]
+
+
+def check_tools(dev, started: list, tmp: str) -> dict:
+    """Wait for run_tools' children and hold their results."""
+    dry, dry512, cal, tiered = (finish_tool(s) for s in started)
+    for name, r in (("import_real_weights --dry-run", dry), ("calibrate_embedder", cal),
+                    ("tiered_eval", tiered)):
+        if r["rc"] != 0:
+            raise AssertionError(f"{name} exited {r['rc']}: {r['err'][-3000:]}")
+    if "dry run: validation passed" not in dry["out"]:
+        raise AssertionError(f"import_real_weights --dry-run: {dry['out']}")
+    if dry512["rc"] == 0 or "shape mismatch" not in dry512["err"]:
+        raise AssertionError(f"the 512-d embedder was not refused at 128-d: {dry512['err'][-2000:]}")
+    with open(os.path.join(tmp, "calibration.json")) as f:
+        calj = json.load(f)
+    with open(os.path.join(tmp, "tiered_eval.json")) as f:
+        tierj = json.load(f)
+    for name, j in (("calibration", calj), ("tiered_eval", tierj)):
+        if j["weights_file"] != "embedder.onnx" or not j["backend"].startswith(dev.type):
+            raise AssertionError(f"{name}: weights {j['weights_file']}, backend {j['backend']}")
+    scale = calj["distance_scale"]
+    if not (np.isfinite(scale) and scale > 0):
+        raise AssertionError(f"calibration scale {scale}")
+    recall = {t: v["detector_recall"] for t, v in tierj["tiers"].items()}
+    if not any(recall.values()):
+        raise AssertionError(f"tiered_eval detected no scene: {recall}")
+    refused = dry512["err"].strip().splitlines()[-1]
+    return dict(seconds={"dry-run": dry["seconds"], "dry-run 512-d": dry512["seconds"],
+                         "calibrate_embedder": cal["seconds"], "tiered_eval": tiered["seconds"]},
+                scale=scale, detected=calj["detected_scenes"], recall=recall,
+                backend=calj["backend"], refused=refused)
+
+
+def scan_stream(eng: RecognitionEngine, scenes: np.ndarray, ticks: int, warm: int) -> dict:
+    """Phase 4's delta stream through eng, submit then fetch: ms/batch on the
+    host clock and per-stage device ms over ticks[warm:], faces a batch."""
+    enc = DeltaEncoder(block_bytes=128)
+    payloads = [enc.encode(tick_batch(scenes, t)) for t in range(ticks + 1)]
+    r = stream_ms(eng, payloads, warm)
+    return dict(r, batches=len(payloads))
+
+
+def run_imported(dev, scenes: np.ndarray, ticks: int, warm: int) -> dict:
+    """Phase 13: a site's own weights on the card (see the module doc)."""
+    from frp_tpu_torch.models import nn
+
+    tmp = tempfile.mkdtemp(prefix="frp_import_")
+    try:
+        made = write_weights_dirs(tmp)
+        dirs = made["dirs"]
+        started = run_tools(dev, dirs, tmp)
+        if nn._PADDING_MODE != "same":
+            raise AssertionError(f"padding mode {nn._PADDING_MODE} before phase 13")
+        mixed = {**IMPORTED, "weights_dir": dirs["mixed"]}
+        allx = {**IMPORTED, "weights_dir": dirs["onnx"]}
+        # untimed checks first, while the tools run: f32 parity of both
+        # engines against the CPU, and the mixed engine at bf16
+        par = {"mixed": run_parity(dev, scenes[PARITY_SCENES], {**mixed, "max_faces_per_frame": 4})}
+        if nn._PADDING_MODE != "same":
+            raise AssertionError("the mixed engines switched the padding mode")
+        bf16 = run_bf16_check(dev, scenes, [], **mixed)["scenes"]
+        if not bf16["ok"]:
+            raise AssertionError(f"imported bf16 engine against the cpu at bf16: {bf16}")
+        par["onnx"] = run_parity(dev, scenes[PARITY_SCENES], {**allx, "max_faces_per_frame": 4})
+        if nn._PADDING_MODE != "torch":
+            raise AssertionError("the all-ONNX engines did not switch to torch padding")
+        nn.set_padding_mode("same")
+        tools = check_tools(dev, started, tmp)
+
+        # (a) mixed provenance over phase 4's stream: the scan with its checks
+        scan = run_scan(dev, scenes, mixed, ticks, warm)
+        eng = scan["engine"]
+        if (eng.weights_loaded["embedder"] != os.path.join(dirs["mixed"], "embedder.onnx")
+                or not eng.weights_loaded["detector"].endswith(".npz") or eng.distance_scale != 1.0
+                or nn._PADDING_MODE != "same"):
+            raise AssertionError(f"mixed engine: {eng.weights_loaded}, scale {eng.distance_scale}, "
+                                 f"padding {nn._PADDING_MODE}")
+        comp = compaction_runs(dev, scenes, mixed, eng, ticks, warm, rounds=1)
+        n_batches = scan["batches"] + comp["batches"]
+        # (b) all three from ONNX: torch padding
+        engb = RecognitionEngine(load_config(**allx), device=dev)
+        if nn._PADDING_MODE != "torch" or not all(
+                p.endswith(".onnx") for p in engb.weights_loaded.values()):
+            raise AssertionError(f"all-ONNX engine: {engb.weights_loaded}, padding {nn._PADDING_MODE}")
+        onnx_scan = scan_stream(engb, scenes, ticks, warm)
+        n_batches += onnx_scan["batches"]
+        got = launches()
+        want = {"detection_head": n_batches, "warp_crops": n_batches, "greedy_nms": 0}
+        if dev.type == "cuda" and got != want:
+            raise AssertionError(f"phase 13 launches {got}, expected {want}")
+        return dict(scan=scan, compaction=comp, onnx_scan=onnx_scan, parity=par, bf16=bf16,
+                    tools=tools, launches=got, batches=n_batches, write_s=made["write_s"],
+                    embedder_mb=made["embedder_mb"])
+    finally:
+        nn.set_padding_mode("same")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --- main --------------------------------------------------------------------
 
 def gpu_name_and_limit() -> str:
@@ -2291,7 +2504,53 @@ def main() -> int:
         + f"; phase 12 took {time.perf_counter() - t_train:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in tr["seconds"].items()) + ")")
 
-    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped, plat, srv, tr))
+    t_import = time.perf_counter()
+    imp = run_imported(dev, scenes, TICKS, WARM)
+    sc, oc, tl = imp["scan"], imp["onnx_scan"], imp["tools"]
+    say("imported", f"weights dirs written in {imp['write_s']:.1f} s: a seeded w600k-style "
+        f"embedder.onnx ({IMPORTED['embedder_arch']}, {IMPORTED['embed_dim']}-d, "
+        f"{imp['embedder_mb']:.1f} MB), and retinaface.onnx and spoof.onnx from the shipped npz")
+    say("imported", "tools on the card, run at once (wall s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in tl["seconds"].items())
+        + f"; dry run of the detector and spoof exports passed; the {IMPORTED['embed_dim']}-d "
+        f"embedder refused at 128-d as the reference's tool does ({tl['refused'][:120]}); "
+        f"calibrate_embedder {' '.join(TOOL_SIZE)}: scale {tl['scale']}, {tl['detected']} scenes, "
+        f"backend {tl['backend']}; tiered_eval recall by tier {tl['recall']}")
+    for name, par in imp["parity"].items():
+        say("imported", f"{name}: parity f32, TF32 off, scenes {PARITY_SCENES}, 4 slots, {par['faces']} faces: "
+            "valid, count, best_idx equal on cuda and cpu; max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in par["max_abs_err"].items()))
+    b = imp["bf16"]
+    say("imported", f"mixed, bf16 against the cpu at bf16, {b['frames']} frames, {b['slots']} "
+        f"faces: valid differ {b['valid_diff']}, count differ {b['count_diff']}, off {b['off_bf16']} "
+        f"(same anchor {b['off_same_anchor']}), anchor flips {b['anchor_flips']} (not a near tie "
+        f"{b['flips_not_tied']}), best_idx differ {b['best_idx_diff']}; min cosine "
+        f"{b['cos_min']:.5f}, boxes {b['box_px']:.3g} px")
+    say("imported", f"(a) embedder.onnx + npz detector and spoof ('same' padding kept), "
+        f"{FRAMES} x 640 I420 delta stream, {TICKS} ticks: steady {sc['frames_per_s']:.1f} "
+        f"frames/s, {sc['faces_per_batch']:.2f} faces/batch, {sc['ms_per_batch']:.2f} ms/batch; "
+        "stage ms (device, median) " + ", ".join(f"{k} {v:.3f}" for k, v in sc["stage_ms"].items())
+        + f"; enrolled face of frame {sc['enrolled_frame']} matched at {sc['enrolled_distance']:.4f}")
+    comp = imp["compaction"]
+    for key in ("on", "off"):
+        bd, busy = comp["bound"][key], comp["busy_ms"][key]
+        say("imported", f"(a) compaction {key}: embed device ms "
+            + ", ".join(f"{x:.3f}" for x in comp["embed_ms"][key])
+            + "; stream ms/batch " + ", ".join(f"{x:.2f}" for x in comp["stream_ms_per_batch"][key])
+            + "; device busy " + ("not measured (no device activity in the trace)" if busy is None
+                                  else f"{busy:.3f} ms/batch (torch.profiler), idle "
+                                  f"{1 - busy / np.median(comp['stream_ms_per_batch'][key]):.2f}")
+            + f"; embed {bd['faces']} faces of {bd['slots']} slots, {bd['rung']} run, "
+            f"{bd['flops'] / 1e12:.4f} TFLOP a batch (FlopCounterMode), bound {bd['bound_ms']:.3f} ms "
+            f"by {bd['bound_by']} (bf16 989 TFLOP/s, 3.35 TB/s), "
+            f"{100 * bd['bound_ms'] / np.median(comp['embed_ms'][key]):.1f} % of it")
+    say("imported", f"(b) all three from ONNX ('torch' padding): {oc['faces_per_batch']:.2f} "
+        f"faces/batch, {oc['ms_per_batch']:.2f} ms/batch; stage ms (device, median) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in oc["stage_ms"].items())
+        + f"; launches {imp['launches']} over {imp['batches']} batches (kernels 1 and 2 once a "
+        f"batch); phase 13 took {time.perf_counter() - t_import:.1f} s on {smi}")
+
+    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp))
               for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():

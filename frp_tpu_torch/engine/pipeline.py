@@ -21,7 +21,7 @@ through decode + ``nms_padded_batched``, whose greedy pass is kernel 3
 (``ops/nms_cuda.py``). Everything is shape-static: M = max_faces slots per
 frame with validity masks.
 
-Not ported yet (ROADMAP): ONNX/.pth import, mesh sharding,
+Not ported yet (ROADMAP): mesh sharding,
 ``build_pipeline``'s ``with_spoof=False``, ``with_quality=False``
 and ``spoof_size``, and the engine's ``with_spoof=False``, which no caller
 of the port sets.
@@ -30,6 +30,7 @@ of the port sets.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import threading
@@ -42,10 +43,18 @@ import torch
 from frp_tpu_torch.config import Config, get_config
 from frp_tpu_torch.engine.batching import DeltaEncoder, DeltaPayload, letterbox
 from frp_tpu_torch.engine.gallery import DeviceGallery
+from frp_tpu_torch.models import nn
 from frp_tpu_torch.models.iresnet import init_iresnet, iresnet_forward
 from frp_tpu_torch.models.mobilefacenet import init_mobilefacenet, mobilefacenet_forward
 from frp_tpu_torch.models.mobilenetv3 import init_mobilenetv3_small, mobilenetv3_forward
-from frp_tpu_torch.models.params import convert_params, load_params, same_structure
+from frp_tpu_torch.models.params import (
+    convert_params,
+    import_onnx_graph,
+    import_onnx_weights,
+    load_onnx_graph,
+    load_params,
+    same_structure,
+)
 from frp_tpu_torch.models.retinaface import init_retinaface, retinaface_forward
 from frp_tpu_torch.ops.align import (
     ARCFACE_TEMPLATE_112,
@@ -439,6 +448,32 @@ class EngineMetrics:
         }
 
 
+def load_any(path: str, ref_tree: dict) -> dict:
+    """A weights file as a numpy tree in the JAX layouts: an npz through
+    ``load_params``; an ONNX export mapped onto a copy of ``ref_tree`` (the
+    init tree) by its node execution order, or, for a node-free tensor dump,
+    by its dotted names (``frp_tpu/engine/pipeline.py:815-842``). Raises
+    ValueError on an unreadable file or a structure mismatch."""
+    if not path.endswith(".onnx"):
+        return load_params(path)
+    return load_onnx(path, ref_tree)
+
+
+def load_onnx(path: str, ref_tree: dict) -> dict:
+    """An ONNX export, whatever its file name, mapped onto a copy of
+    ``ref_tree``: the ONNX half of ``load_any``."""
+    graph = load_onnx_graph(path)
+    if graph is None:
+        raise ValueError("unreadable/empty onnx")
+    # a deep copy keeps the dict order, which the importer walks by
+    new = copy.deepcopy(ref_tree)
+    if graph["nodes"]:
+        import_onnx_graph(new, graph)
+    else:
+        import_onnx_weights(new, graph["initializers"])
+    return new
+
+
 class RecognitionEngine:
     """Host-facing wrapper: params + gallery + stages + metrics.
 
@@ -516,12 +551,22 @@ class RecognitionEngine:
         loaded). The file is keyed by arch and mode: with flip-TTA only
         calibration_{arch}_flip.json, else calibration_{arch}.json and, for
         MobileFaceNet, calibration.json; a file whose ``flip_tta`` differs
-        from the engine's mode is skipped. A calibration whose recorded
+        from the engine's mode is skipped. An embedder loaded from ONNX gets
+        no calibration (1.0), as in the JAX engine. A calibration whose recorded
         weights sha256 differs from the loaded files is refused, unless the
         engine was built with allow_stale_calibration (then it runs
         uncalibrated)."""
         emb_path = self.weights_loaded.get("embedder")
         if not emb_path:
+            return 1.0
+        if emb_path.endswith(".onnx"):
+            # a calibration beside a user's export was measured for other
+            # weights or not at all: the JAX engine applies none
+            # (frp_tpu/engine/pipeline.py:709-719), and neither does the port
+            logger.warning(
+                "embedder loaded from %s: skipping shipped distance "
+                "calibration; run tools/calibrate_embedder.py to measure a "
+                "scale for these weights", emb_path)
             return 1.0
         arch = self.cfg.embedder_arch
         flip = bool(self.cfg.embed_flip_tta)
@@ -573,11 +618,14 @@ class RecognitionEngine:
     def _load_weights(self, host_params: dict, arch: str) -> dict:
         """Load trained weights from cfg.weights_dir (relative to the cwd,
         then to the repository root) over the seeded init. Candidates per
-        model, first successful load wins: retinaface.npz /
-        retinaface_synthetic.npz, {arch}.npz / embedder.npz, spoof.npz /
-        mobilenetv3.npz. A file must match the init tree's key paths and
-        shapes. An ``.onnx`` candidate, which the JAX engine would load
-        first, raises: the port does not import ONNX yet."""
+        model, first successful load wins: retinaface.onnx / retinaface.npz /
+        retinaface_synthetic.npz, embedder.onnx / {arch}.npz / embedder.npz,
+        spoof.onnx / spoof.npz / mobilenetv3.npz. A user's ONNX export
+        outranks the shipped npz. A file must match the init tree's key paths
+        and shapes. Then the conv padding switch of
+        ``frp_tpu/engine/pipeline.py:879-904``: weights all from ONNX switch
+        the global mode to "torch" unless CONV_PADDING is set; ONNX beside
+        npz keeps the mode and warns. Returns {model: path or None}."""
         loaded: dict = {}
         wd = self.cfg.weights_dir
         roots = [wd, os.path.join(_REPO_ROOT, wd)]
@@ -593,23 +641,35 @@ class RecognitionEngine:
                     path = os.path.join(root, name)
                     if not os.path.exists(path):
                         continue
-                    if name.endswith(".onnx"):
-                        raise NotImplementedError(
-                            f"{path}: ONNX weights are not imported by the "
-                            "PyTorch port yet (ROADMAP Queue 1, ONNX and .pth "
-                            "import); the JAX engine would load this file"
-                        )
                     try:
-                        new = load_params(path)
+                        new = load_any(path, host_params[model])
+                        # key paths, not only shapes: two shape-identical
+                        # subtrees under other names must not load crossed
                         if not same_structure(host_params[model], new):
                             raise ValueError("structure mismatch")
                         host_params[model] = new
                         loaded[model] = path
-                        break
+                        break  # a corrupt first candidate falls through
                     except (ValueError, OSError, KeyError) as e:
                         logger.warning("weights %s not loaded: %s", path, e)
                 if loaded[model]:
                     break
+        onnx_models = [m for m, p in loaded.items() if p and p.endswith(".onnx")]
+        if onnx_models and "CONV_PADDING" not in os.environ:
+            npz_models = [m for m, p in loaded.items() if p and not p.endswith(".onnx")]
+            if npz_models:
+                # one global mode cannot fit both: keep it, and say which
+                # models run under another padding than they were trained on
+                logger.warning(
+                    "mixed weight provenance (onnx: %s, npz: %s): conv padding "
+                    "mode stays '%s'; set CONV_PADDING=torch if the onnx "
+                    "models matter more, or convert all weights to one format",
+                    onnx_models, npz_models, nn._PADDING_MODE)
+            elif nn._PADDING_MODE != "torch":
+                logger.warning(
+                    "onnx checkpoints loaded (%s): switching conv padding to "
+                    "'torch' (override with CONV_PADDING)", onnx_models)
+                nn.set_padding_mode("torch")
         return loaded
 
     # -- staged dispatch --------------------------------------------------

@@ -22,12 +22,16 @@ Conventions:
     returns the updated running stats beside the output, as the JAX
     package's training step expects.
   * Conv padding follows XLA ``SAME`` (a stride-2 conv on an even input pads
-    (0, 1)), through an explicit ``F.pad`` where the two sides differ.
+    (0, 1)), through an explicit ``F.pad`` where the two sides differ, unless
+    the global mode is "torch" (``set_padding_mode``, ``CONV_PADDING``): then
+    every "SAME" conv pads k//2 on both sides, as ``torch.nn.Conv2d(padding=
+    k//2)`` does, which imported torch/ONNX checkpoints were trained under.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -110,6 +114,25 @@ def _cast(p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
     return got
 
 
+# "same" (XLA asymmetric) | "torch" (symmetric k//2): see set_padding_mode
+_PADDING_MODE = os.getenv("CONV_PADDING", "same")
+
+
+def set_padding_mode(mode: str) -> None:
+    """Global conv padding semantics (``frp_tpu/models/nn.py:75-85``).
+
+    "same": XLA SAME, which pads stride-2 even inputs (0, 1), the convention
+    the in-repo weights were trained under. "torch": k//2 on both sides, as
+    torch's ``Conv2d(padding=k//2)``; imported torch/ONNX checkpoints need it,
+    or their stride-2 layers compute on a grid one pixel off the one they were
+    trained on. The JAX package reads the mode when it traces a function; the
+    port's forwards are eager and read it at every call."""
+    if mode not in ("same", "torch"):
+        raise ValueError(f"conv padding mode {mode!r}: 'same' or 'torch'")
+    global _PADDING_MODE
+    _PADDING_MODE = mode
+
+
 def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     """XLA SAME padding (lo, hi) of one spatial axis."""
     out = -(-n // s)
@@ -118,10 +141,13 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
 
 
 def conv(p: dict, x: torch.Tensor, stride: int = 1, padding: str = "SAME", groups: int = 1) -> torch.Tensor:
-    """Conv with OIHW weights p["w"]; padding "SAME" (XLA) or "VALID"."""
+    """Conv with OIHW weights p["w"]; padding "SAME" (XLA, or k//2 on both
+    sides in the "torch" mode) or "VALID"."""
     w = _cast(p, "w", x.dtype)
     pad = (0, 0)
-    if padding == "SAME":
+    if padding == "SAME" and _PADDING_MODE == "torch":
+        pad = (w.shape[2] // 2, w.shape[3] // 2)
+    elif padding == "SAME":
         ph = _same_pads(x.shape[2], w.shape[2], stride)
         pw = _same_pads(x.shape[3], w.shape[3], stride)
         if ph[0] == ph[1] and pw[0] == pw[1]:

@@ -17,21 +17,27 @@ FPN_CH = 64
 NUM_ANCHORS = 2
 
 
-def _cba_init(rng, kh, kw, cin, cout, groups: int = 1):
-    return nn.conv_bn_init(rng, kh, kw, cin, cout, groups)
+# Activated conv+bn block: the in-repo weights use weightless leaky-ReLU 0.1;
+# real InsightFace det exports carry learned per-channel PReLU slopes, so with
+# act="prelu" every activated block holds an "act" {"alpha"} unit, which the
+# ONNX importer (models/params.py) fills from a Conv->BN->PRelu run.
+
+def _cba_init(rng, kh, kw, cin, cout, groups: int = 1, prelu: bool = False):
+    p = nn.conv_bn_init(rng, kh, kw, cin, cout, groups)
+    if prelu:
+        p["act"] = nn.prelu_init(cout)
+    return p
 
 
 def _cba(p, x, stride: int = 1, groups: int = 1):
-    # the in-repo weights use weightless leaky-ReLU 0.1; the JAX package's
-    # learned-PReLU variant serves ONNX imports, which the port does not
-    # take yet (ROADMAP Queue 1)
-    return nn.leaky_relu(nn.conv_bn(p, x, stride=stride, groups=groups))
+    y = nn.conv_bn(p, x, stride=stride, groups=groups)
+    return nn.prelu(p["act"], y) if "act" in p else nn.leaky_relu(y)
 
 
-def _dw_sep_init(rng, cin, cout):
+def _dw_sep_init(rng, cin, cout, prelu=False):
     return {
-        "dw": _cba_init(rng, 3, 3, cin, cin, groups=cin),
-        "pw": _cba_init(rng, 1, 1, cin, cout),
+        "dw": _cba_init(rng, 3, 3, cin, cin, groups=cin, prelu=prelu),
+        "pw": _cba_init(rng, 1, 1, cin, cout, prelu=prelu),
     }
 
 
@@ -40,13 +46,13 @@ def _dw_sep(p, x, stride):
     return _cba(p["pw"], y)
 
 
-def _ssh_init(rng, cin, cout):
+def _ssh_init(rng, cin, cout, prelu=False):
     half, quarter = cout // 2, cout // 4
     return {
         "conv3": nn.conv_bn_init(rng, 3, 3, cin, half),
-        "conv5_1": _cba_init(rng, 3, 3, cin, quarter),
+        "conv5_1": _cba_init(rng, 3, 3, cin, quarter, prelu=prelu),
         "conv5_2": nn.conv_bn_init(rng, 3, 3, quarter, quarter),
-        "conv7_2": _cba_init(rng, 3, 3, quarter, quarter),
+        "conv7_2": _cba_init(rng, 3, 3, quarter, quarter, prelu=prelu),
         "conv7_3": nn.conv_bn_init(rng, 3, 3, quarter, quarter),
     }
 
@@ -60,25 +66,30 @@ def _ssh(p, x):
     return nn.relu(torch.cat([c3, c5, c7], dim=1))
 
 
-def init_retinaface(rng_or_seed=0) -> dict:
-    """Numpy parameter tree of the leaky-ReLU detector, equal to
-    ``frp_tpu.models.retinaface.init_retinaface`` for the same seed."""
+def init_retinaface(rng_or_seed=0, act: str = "leaky") -> dict:
+    """Numpy parameter tree of the detector, equal to
+    ``frp_tpu.models.retinaface.init_retinaface`` for the same seed and act:
+    "leaky" (weightless, the in-repo default) or "prelu" (learned slopes on
+    every activated block, the structure real det exports import onto)."""
+    if act not in ("leaky", "prelu"):
+        raise ValueError(f"act {act!r}: 'leaky' or 'prelu'")
+    prelu = act == "prelu"
     rng = nn.as_rng(rng_or_seed)
-    params = {"stem": _cba_init(rng, 3, 3, 3, 8)}
+    params = {"stem": _cba_init(rng, 3, 3, 3, 8, prelu=prelu)}
 
     def stage(cin, plan):
         blocks = []
         for cout, _ in plan:
-            blocks.append(_dw_sep_init(rng, cin, cout))
+            blocks.append(_dw_sep_init(rng, cin, cout, prelu=prelu))
             cin = cout
         return blocks, cin
 
     params["stage1"], c1 = stage(8, _STAGE1)
     params["stage2"], c2 = stage(c1, _STAGE2)
     params["stage3"], c3 = stage(c2, _STAGE3)
-    params["fpn_lat"] = [_cba_init(rng, 1, 1, c, FPN_CH) for c in (c1, c2, c3)]
-    params["fpn_td"] = [_cba_init(rng, 3, 3, FPN_CH, FPN_CH) for _ in range(2)]
-    params["ssh"] = [_ssh_init(rng, FPN_CH, FPN_CH) for _ in range(3)]
+    params["fpn_lat"] = [_cba_init(rng, 1, 1, c, FPN_CH, prelu=prelu) for c in (c1, c2, c3)]
+    params["fpn_td"] = [_cba_init(rng, 3, 3, FPN_CH, FPN_CH, prelu=prelu) for _ in range(2)]
+    params["ssh"] = [_ssh_init(rng, FPN_CH, FPN_CH, prelu=prelu) for _ in range(3)]
     params["head_cls"] = [nn.conv_init(rng, 1, 1, FPN_CH, NUM_ANCHORS * 2) for _ in range(3)]
     params["head_box"] = [nn.conv_init(rng, 1, 1, FPN_CH, NUM_ANCHORS * 4) for _ in range(3)]
     params["head_ldm"] = [nn.conv_init(rng, 1, 1, FPN_CH, NUM_ANCHORS * 10) for _ in range(3)]

@@ -497,3 +497,49 @@ def test_train_bf16_loss_falls_on_cuda(cuda, arch):
         tr.train_step(x, y, sync=False)
     losses = [e["loss"] for e in tr.flush_metrics()]
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+# --- a site's own weights ---------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("provenance", ["mixed", "onnx"])
+def test_imported_iresnet50_512_engine_on_the_card_matches_cpu(cuda, tmp_path, provenance):
+    """chip_smoke's phase-13 weights (a seeded w600k-style iresnet50-512
+    embedder.onnx beside the shipped npz detector and spoof, or all three as
+    ONNX): the engine at f32 (TF32 off) on the card against the CPU on
+    phase 13's 2 parity scenes (640, two faces each), 4 slots: valid, count and best_idx bit for bit,
+    boxes within 1e-2 px (chip_smoke.run_parity). The mixed engine keeps
+    "same" padding, the all-ONNX one switches to "torch"."""
+    from frp_tpu_torch.models import nn
+
+    smoke = _smoke()
+    dirs = smoke.write_weights_dirs(str(tmp_path))["dirs"]
+    scenes = smoke.render_scenes(smoke.FRAMES, 640, smoke.SEED)[smoke.PARITY_SCENES]
+    try:
+        par = smoke.run_parity(cuda, scenes, {**smoke.IMPORTED, "max_faces_per_frame": 4,
+                                              "weights_dir": dirs[provenance]})
+        assert nn._PADDING_MODE == ("torch" if provenance == "onnx" else "same")
+    finally:
+        nn.set_padding_mode("same")
+    assert par["faces"] > 0 and par["max_abs_err"]["boxes"] <= 1e-2
+
+
+@pytest.mark.cuda
+def test_calibrate_embedder_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """calibrate_embedder --device cuda against --device cpu at 2 identities
+    x 2 variants, both at f32 (COMPUTE_DTYPE, TF32 off): the same detected
+    scenes and pair counts, the scale and every metric within 1e-3."""
+    from frp_tpu_torch.tools import calibrate_embedder
+
+    monkeypatch.setenv("COMPUTE_DTYPE", "float32")
+    monkeypatch.delenv("WEIGHTS_DIR", raising=False)
+    monkeypatch.chdir(REPO)
+    tiny = ["--identities", "2", "--variants", "2"]
+    got = calibrate_embedder.main(tiny + ["--device", "cuda", "--out", str(tmp_path / "cuda.json")])
+    want = calibrate_embedder.main(tiny + ["--device", "cpu", "--out", str(tmp_path / "cpu.json")])
+    assert got["backend"].startswith("cuda (") and want["backend"] == "cpu"
+    assert got["detected_scenes"] == want["detected_scenes"]
+    assert abs(got["distance_scale"] / want["distance_scale"] - 1) <= 1e-3
+    for key in ("metrics_e2e_raw", "metrics_e2e_calibrated", "metrics_crop_calibrated"):
+        for k, v in want[key].items():
+            assert abs(got[key][k] - v) <= 1e-3, (key, k, got[key][k], v)

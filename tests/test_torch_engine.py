@@ -191,10 +191,21 @@ def _weights_copy(tmp_path):
 
 
 def test_onnx_candidate_raises(tmp_path):
+    """An unreadable ONNX candidate raises in the loader, and the engine
+    falls through to the next candidate (the ONNX path itself is held in
+    tests/test_torch_onnx.py)."""
+    from frp_tpu_torch.engine.pipeline import load_any
+    from frp_tpu_torch.models import nn
+    from frp_tpu_torch.models.retinaface import init_retinaface
+
     wd = _weights_copy(tmp_path)
     (wd / "retinaface.onnx").write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="ONNX"):
-        RecognitionEngine(load_config(**KW, weights_dir=str(wd)), device="cpu")
+    with pytest.raises(ValueError, match="onnx"):
+        load_any(str(wd / "retinaface.onnx"), init_retinaface(0))
+    mode = nn._PADDING_MODE
+    eng = RecognitionEngine(load_config(**KW, weights_dir=str(wd)), device="cpu")
+    assert eng.weights_loaded["detector"] == str(wd / "retinaface_synthetic.npz")
+    assert nn._PADDING_MODE == mode
 
 
 def test_stale_calibration_refused(tmp_path):

@@ -147,10 +147,12 @@ def test_npz_paths_shapes_values_equal(name):
     assert weights_fingerprint(path) == jfingerprint(path)
 
 
-@pytest.mark.parametrize("model", ["retinaface", "mobilefacenet", "mobilenetv3"])
+@pytest.mark.parametrize("model", ["retinaface", "retinaface_prelu", "mobilefacenet", "mobilenetv3"])
 def test_seeded_init_equals_jax(model):
     port, ref = {
         "retinaface": (tret.init_retinaface(3), jret.init_retinaface(3)),
+        "retinaface_prelu": (tret.init_retinaface(3, act="prelu"),
+                             jret.init_retinaface(3, act="prelu")),
         "mobilefacenet": (tmfn.init_mobilefacenet(4), jmfn.init_mobilefacenet(4)),
         "mobilenetv3": (tmnv3.init_mobilenetv3_small(5), jmnv3.init_mobilenetv3_small(5)),
     }[model]
@@ -199,7 +201,10 @@ def test_port_imports_no_jax_nor_frp_tpu():
         "          'utils.thumbnail_cache', 'utils.profiling', 'utils.logger',\n"
         "          'train.arcface', 'train.classifier', 'train.detector', 'train.checkpoint',\n"
         "          'train.synthetic', 'train.pairs', 'ops.anchor_targets', 'tools.fl_client',\n"
-        "          'tools.pretrain_embedder', 'tools.pretrain_spoof', 'tools.pretrain_synthetic'):\n"
+        "          'tools.pretrain_embedder', 'tools.pretrain_spoof', 'tools.pretrain_synthetic',\n"
+        "          'tools.import_real_weights', 'tools.calibrate_embedder', 'tools.tiered_eval',\n"
+        "          'tools.eval_spoof', 'tools.migrate_retinaface_npz', 'tools.demo_server',\n"
+        "          'tools.mock_camera_worker', 'testing.onnx_export'):\n"
         "    assert 'frp_tpu_torch.' + n in mods, n\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -212,3 +212,35 @@ def test_train_phase_runs_on_the_cpu(smoke, monkeypatch):
     assert all(e["params"] == 0.0 for e in out["parity"].values())
     assert out["serve"]["faces"] > 0 and out["serve"]["scenes"] >= 1
     assert out["fl"]["layers"] > 50 and len(out["fl"]["losses"]) == 2
+
+
+def test_imported_weights_phase_runs_on_the_cpu(smoke, monkeypatch):
+    """Phase 13 at a tiny size on the CPU (2 frames at det 128, 4 slots, an
+    iresnet18 512-d w600k-style export, 3 ticks, the tools at 2 x 2 as child
+    processes on the CPU): the tools' results, both engines' parity (cpu
+    against cpu here), the mixed engine's bf16 rule, its scan and compaction
+    runs, the all-ONNX engine's stream, and the padding mode back to "same"
+    (times, device-busy shares and launches need the card)."""
+    from frp_tpu_torch.models import nn
+
+    small = dict(det_size=128, max_faces_per_frame=4, pre_nms_topk=64, det_conf_threshold=0.3)
+    monkeypatch.setattr(smoke, "IMPORTED", dict(smoke.IMPORTED, embedder_arch="iresnet18", **small))
+    monkeypatch.setattr(smoke, "TOOL_SIZE", ("--identities", "2", "--variants", "2"))
+    monkeypatch.setattr(smoke, "PARITY_SCENES", [0, 1])  # faces at det 128
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", _CpuEvent)
+    monkeypatch.setattr(smoke, "busy_ms", lambda fn, n: (None, []))
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    scenes = smoke.render_scenes(2, 128, 0)
+    out = smoke.run_imported(torch.device("cpu"), scenes, 2, 1)
+    assert nn._PADDING_MODE == "same"
+    tl = out["tools"]
+    assert set(tl["seconds"]) == {"dry-run", "dry-run 512-d", "calibrate_embedder", "tiered_eval"}
+    assert tl["backend"] == "cpu" and tl["scale"] > 0 and "shape mismatch" in tl["refused"]
+    assert out["bf16"]["ok"] and out["bf16"]["slots"] > 0
+    assert all(p["faces"] > 0 for p in out["parity"].values())
+    assert out["scan"]["faces_per_batch"] > 0 and out["onnx_scan"]["faces_per_batch"] > 0
+    comp = out["compaction"]
+    # 2 frames x 4 slots is below compaction's 64 slots: both run all 8
+    assert comp["bound"]["on"]["flops"] == comp["bound"]["off"]["flops"] > 0
+    assert out["batches"] == out["scan"]["batches"] + comp["batches"] + out["onnx_scan"]["batches"]
