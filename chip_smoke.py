@@ -157,8 +157,24 @@ Phases, each printed on its own lines, in order:
             padding) over the same stream. Kernels 1 and 2 launch once a
             batch; the padding mode is "same" again afterwards.
 
+14. mesh     (a) the engine over a mesh of the card repeated twice (data 2):
+            the default profile over phase 4's stream, 4 frames a shard;
+            kernels 1 and 2 launch once a shard a batch; ms/batch and the
+            host syncs a batch (torch's sync debug mode) beside an
+            unsharded engine's; against the unsharded engine at bf16 by
+            phase 11's NEAR_TIE rule and at f32 (TF32 off) bit for bit in
+            valid, count and best_idx, boxes within 1e-2 px. (b) four gloo
+            processes share the card as a 2 x 2 process mesh: the
+            MobileFaceNet ArcFace (dp x tp), spoof and detector (dp) f32
+            steps against one process on the card (train_parity's bounds),
+            and the bf16 ArcFace step at phase 12's batch, its ms a step
+            against phase 12's. (c) a one-rank NCCL group runs the f32
+            ArcFace step against one process. (d) the FL service over the
+            mesh of (a) aggregates two clients: backend mesh_psum[2], the
+            f32 mean bit for bit.
+
 Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9,
-10, 11, 12 and 13 and read just after. Any failed check raises, so the run exits
+10, 11, 12, 13 and 14 and read just after. Any failed check raises, so the run exits
 non-zero. The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
@@ -1333,12 +1349,14 @@ BF16_TOL = dict(box_px=1.0, cos=0.99, fake_prob=0.02)
 NEAR_TIE = 2e-4
 
 
-def kept_anchors(fn, det_size: float) -> tuple[list, list, list]:
+def kept_anchors(fn, det_size: float, shards: int = 1) -> tuple[list, list, list]:
     """Run fn(), which returns a list of process_frames results, with the
     detection head's candidate payloads captured. Returns the results, per
     result [B, M, 5] the prior (cx, cy, w, h) and score of the candidate each
     slot kept (the one whose decoded box is the slot's box), and the
-    payloads [B, K, 19] on the host."""
+    payloads [B, K, 19] on the host. An engine over a mesh of `shards`
+    data positions builds a payload a shard: they are joined in row
+    order."""
     payloads = []
     build = detection_cuda.build_payload
 
@@ -1351,8 +1369,9 @@ def kept_anchors(fn, det_size: float) -> tuple[list, list, list]:
         results = fn()
     finally:
         detection_cuda.build_payload = build
-    if len(payloads) != len(results):
+    if len(payloads) != shards * len(results):
         raise AssertionError(f"{len(payloads)} head payloads for {len(results)} results")
+    payloads = [torch.cat(payloads[i:i + shards]) for i in range(0, len(payloads), shards)]
     anchors, hosts = [], []
     for p, out in zip(payloads, results):
         p = p.float().cpu()
@@ -1900,52 +1919,60 @@ def train_parity(dev, names=None) -> dict:
             bufs = {key: _flat_numpy(_tree_of(tr, lambda p: tr.optimizer.state[p][key]))
                     for key in buffers}
             runs.append((m, _flat_numpy(tr.state["params"]), bufs))
-        (mg, pg, bg), (mw, pw, bw) = runs
-        if abs(mg["loss"] - mw["loss"]) > 1e-4 * abs(mw["loss"]) or \
-                mg.get("accuracy") != mw.get("accuracy"):
-            raise AssertionError(f"{name}: {mg} on {dev}, {mw} on the CPU")
-        lr = PARITY_LR["arcface" if name.startswith("arcface") else "adamw"]
-        errs = dict(loss_rel=abs(mg["loss"] - mw["loss"]) / abs(mw["loss"]), params=0.0)
-        # AdamW's first update is lr * g / (|g| + eps), +-lr whatever |g|: an
-        # element whose gradient the two devices disagree on by more than
-        # half its size (the f32 floor: 1e-6 noise on the input moves 174-277
-        # of the detector's 433,200 so), or whose gradient on either device
-        # is within 100 eps of zero (where g / (|g| + eps) still moves with
-        # |g|), may land up to 2 lr apart; exp_avg is 0.1 g after one step
-        undetermined = {
-            k: (np.abs(bg["exp_avg"][k] - w) > 0.5 * np.abs(w))
-            | (np.minimum(np.abs(bg["exp_avg"][k]), np.abs(w)) < 1e-7)
-            for k, w in bw["exp_avg"].items()} if "exp_avg" in bw else {}
-        loose, worst = 0, None
-        for k, w in pw.items():
-            diff = np.abs(pg[k] - w)
-            if k in undetermined:
-                u = undetermined[k]
-                loose += int((u & (diff > 1e-4)).sum())
-                if (diff[u] > 2 * lr + 1e-6).any():
-                    raise AssertionError(f"{name} {k}: an element moved past 2 lr")
-                diff = np.where(u, 0.0, diff)
-            if float(diff.max()) > errs["params"]:
-                i = np.unravel_index(int(diff.argmax()), diff.shape)
-                errs["params"], worst = float(diff.max()), (k, i, *(
-                    float(b[key][k][i]) for b in (bg, bw) for key in b))
-        errs["loose"] = loose  # elements held within 2 lr only
-        if errs["params"] > 1e-4 or loose > 1e-3 * sum(v.size for v in pw.values()):
-            raise AssertionError(f"{name}: parameters {errs['params']:.3g} apart ({loose} loose); "
-                                 f"the worst element and its buffers on {dev} and the CPU: {worst}")
-        for key in buffers:  # each leaf within 2e-2 of its L2 norm + 1e-3 of the largest entry
-            top = max(float(np.abs(v).max()) for v in bw[key].values())
-            worst = 0.0
-            for k, w in bw[key].items():
-                err = float(np.linalg.norm(bg[key][k] - w) / (np.linalg.norm(w) + 1e-3 * top))
-                worst = max(worst, err)
-                if err > 2e-2:
-                    raise AssertionError(f"{name} {key} {k}: {err:.3g} of its L2 norm")
-            errs[key] = worst
-        out[name] = errs
+        out[name] = hold_step(name, *runs, f"{dev}", "the CPU")
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's default
     return out
+
+
+def hold_step(name: str, got: tuple, want: tuple, got_on: str, want_on: str) -> dict:
+    """One trainer step (metrics, flat parameters, {buffer name: flat
+    buffers}) held against another's from the same state, with
+    train_parity's bounds; returns the max errors, raises past a bound."""
+    (mg, pg, bg), (mw, pw, bw) = got, want
+    if abs(mg["loss"] - mw["loss"]) > 1e-4 * abs(mw["loss"]) or \
+            mg.get("accuracy") != mw.get("accuracy"):
+        raise AssertionError(f"{name}: {mg} on {got_on}, {mw} on {want_on}")
+    lr = PARITY_LR["arcface" if name.startswith("arcface") else "adamw"]
+    errs = dict(loss_rel=abs(mg["loss"] - mw["loss"]) / abs(mw["loss"]), params=0.0)
+    # AdamW's first update is lr * g / (|g| + eps), +-lr whatever |g|: an
+    # element whose gradient the two devices disagree on by more than
+    # half its size (the f32 floor: 1e-6 noise on the input moves 174-277
+    # of the detector's 433,200 so), or whose gradient on either device
+    # is within 100 eps of zero (where g / (|g| + eps) still moves with
+    # |g|), may land up to 2 lr apart; exp_avg is 0.1 g after one step
+    undetermined = {
+        k: (np.abs(bg["exp_avg"][k] - w) > 0.5 * np.abs(w))
+        | (np.minimum(np.abs(bg["exp_avg"][k]), np.abs(w)) < 1e-7)
+        for k, w in bw["exp_avg"].items()} if "exp_avg" in bw else {}
+    loose, worst = 0, None
+    for k, w in pw.items():
+        diff = np.abs(pg[k] - w)
+        if k in undetermined:
+            u = undetermined[k]
+            loose += int((u & (diff > 1e-4)).sum())
+            if (diff[u] > 2 * lr + 1e-6).any():
+                raise AssertionError(f"{name} {k}: an element moved past 2 lr")
+            diff = np.where(u, 0.0, diff)
+        if float(diff.max()) > errs["params"]:
+            i = np.unravel_index(int(diff.argmax()), diff.shape)
+            errs["params"], worst = float(diff.max()), (k, i, *(
+                float(b[key][k][i]) for b in (bg, bw) for key in b))
+    errs["loose"] = loose  # elements held within 2 lr only
+    if errs["params"] > 1e-4 or loose > 1e-3 * sum(v.size for v in pw.values()):
+        raise AssertionError(f"{name}: parameters {errs['params']:.3g} apart ({loose} loose); "
+                             f"the worst element and its buffers on {got_on} and {want_on}: "
+                             f"{worst}")
+    for key in bw:  # each leaf within 2e-2 of its L2 norm + 1e-3 of the largest entry
+        top = max(float(np.abs(v).max()) for v in bw[key].values())
+        worst = 0.0
+        for k, w in bw[key].items():
+            err = float(np.linalg.norm(bg[key][k] - w) / (np.linalg.norm(w) + 1e-3 * top))
+            worst = max(worst, err)
+            if err > 2e-2:
+                raise AssertionError(f"{name} {key} {k}: {err:.3g} of its L2 norm")
+        errs[key] = worst
+    return errs
 
 
 def run_trained_serving(dev, scenes: np.ndarray, trained, default_eng: RecognitionEngine) -> dict:
@@ -2255,6 +2282,268 @@ def run_imported(dev, scenes: np.ndarray, ticks: int, warm: int) -> dict:
 
 # --- main --------------------------------------------------------------------
 
+# --- phase 14: the mesh -------------------------------------------------------
+
+MESH_DATA = 2  # phase 14 (a): the card repeated twice on the data axis
+MESH_RANKS, MESH_MODEL = 4, 2  # phase 14 (b): a 2 x 2 process mesh sharing the card
+MESH_STEPS = 6  # (b)'s and (c)'s bf16 steps, the median after TRAIN_WARM
+
+
+def host_syncs(fn) -> int:
+    """The synchronizing CUDA calls fn() makes (each a wait of the host for
+    the card), as torch's sync debug mode reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def enrol_faces(engines: list, frames: np.ndarray, fmt: str = "rgb") -> int:
+    """The faces the last engine finds in frames, each at its own norm, and 3
+    decoys, enrolled in every engine's gallery; returns the count."""
+    ref = engines[-1].process_frames(frames, fmt=fmt)
+    embs = ref["embeddings"][ref["valid"]]
+    embs = embs * np.linspace(0.95, 0.8, len(embs), dtype=np.float32)[:, None]
+    decoys = np.random.default_rng(SEED).normal(size=(3, embs.shape[1])).astype(np.float32)
+    for eng in engines:
+        for i, e in enumerate([*embs, *decoys]):
+            eng.gallery.add(f"g{i}", e)
+    return len(embs) + 3
+
+
+def run_mesh_engine(dev, scenes: np.ndarray, ticks: int, warm: int) -> dict:
+    """Phase 14 (a): the default profile over a mesh of the card repeated
+    MESH_DATA times, over phase 4's stream: kernels 1 and 2 once a shard a
+    batch, the resident batch, ms/batch, and the host syncs a batch beside
+    an unsharded engine's. Then against the unsharded engine on the same
+    inputs: at bf16 by the NEAR_TIE rule (the scenes as RGB and the last
+    tick as I420), at f32 (TF32 off) bit for bit in valid, count and
+    best_idx, boxes within 1e-2 px (the keyframe and two ticks)."""
+    from frp_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data=MESH_DATA, devices=[dev] * MESH_DATA)
+    eng = RecognitionEngine(load_config(**PROFILE), mesh=mesh)
+    enc = DeltaEncoder(block_bytes=128)
+    batches = [tick_batch(scenes, t) for t in range(ticks + 1)]
+    payloads = [enc.encode(x) for x in batches]
+    timed = dev.type == "cuda"
+    reset_launches()
+    t0, faces = None, 0
+    for t, payload in enumerate(payloads):
+        if t == warm:
+            if timed:
+                torch.cuda.synchronize()
+            t0, faces = time.perf_counter(), 0
+        faces += int(eng.fetch(eng.submit_encoded(payload))["count"].sum())
+    elapsed = time.perf_counter() - t0
+    steady = ticks + 1 - warm
+    stream = launches()
+    want = {"detection_head": MESH_DATA * len(payloads), "warp_crops": MESH_DATA * len(payloads),
+            "greedy_nms": 0}
+    if timed and stream != want:
+        raise AssertionError(f"the sharded stream launched {stream}, expected {want}")
+    if not np.array_equal(eng._delta_prev.cpu().numpy(), batches[-1]):
+        raise AssertionError("the sharded resident batch differs from the last tick")
+
+    ref = RecognitionEngine(load_config(**PROFILE), device=dev)
+    renc = DeltaEncoder(block_bytes=128)
+    ref.fetch(ref.submit_encoded(renc.encode(batches[-1])))
+    nxt = tick_batch(scenes, ticks + 1)
+    syncs = {"sharded": host_syncs(lambda: eng.fetch(eng.submit_encoded(enc.encode(nxt)))),
+             "unsharded": host_syncs(lambda: ref.fetch(ref.submit_encoded(renc.encode(nxt))))}
+
+    gallery = enrol_faces([eng, ref], scenes)
+    runs = [kept_anchors(lambda e=e: [e.process_frames(scenes),
+                                      e.process_frames(batches[-1], fmt="yuv420")],
+                         float(PROFILE["det_size"]), shards=k)
+            for e, k in ((eng, MESH_DATA), (ref, 1))]
+    bf16 = bf16_against_cpu(*runs)
+    if not bf16["ok"]:
+        raise AssertionError(f"the sharded bf16 engine against the unsharded one: {bf16}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = {**PROFILE, "compute_dtype": "float32"}
+    pair = [RecognitionEngine(load_config(**f32), mesh=mesh),
+            RecognitionEngine(load_config(**f32), device=dev)]
+    enrol_faces(pair, batches[0], fmt="yuv420")
+    errs, f32_faces = {"boxes": 0.0, "best_distance": 0.0, "fake_prob": 0.0}, 0
+    for payload in payloads[:3]:
+        got, want = (e.fetch(e.submit_encoded(payload)) for e in pair)
+        for key in ("valid", "count", "best_idx"):
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"the sharded f32 engine differs in {key}")
+        v = want["valid"]
+        f32_faces += int(v.sum())
+        for key in errs:
+            errs[key] = max(errs[key], float(np.abs(got[key][v] - want[key][v]).max()))
+    torch.backends.cudnn.allow_tf32 = True
+    if not errs["boxes"] <= 1e-2:
+        raise AssertionError(f"the sharded f32 engine's boxes differ by {errs['boxes']} px")
+    return dict(launches=launches(), stream_launches=stream, batches=len(payloads),
+                ms_per_batch=elapsed * 1e3 / steady, frames_per_s=steady * len(scenes) / elapsed,
+                faces_per_batch=faces / steady, syncs=syncs, bf16=bf16, gallery=gallery,
+                f32_faces=f32_faces, f32_max_abs_err=errs)
+
+
+def mesh_cases() -> dict:
+    """train_parity's f32 cases (batches, seeds, learning rates) as
+    testing.ranks.train_case specs; MobileFaceNet's ArcFace."""
+    from frp_tpu_torch.tools.pretrain_spoof import make_spoof_batch
+    from frp_tpu_torch.train.synthetic import make_batch, make_identity
+
+    crops, labels, _ = arcface_batch(PARITY_BATCH, SEED + 1)
+    spoof = make_spoof_batch([make_identity(s) for s in range(32)], np.random.default_rng(SEED + 2),
+                             PARITY_BATCH)
+    det = make_batch(4, DET_TRAIN[0], np.random.default_rng(SEED + 3), difficulty="mix")
+    adamw = dict(seed=SEED, learning_rate=PARITY_LR["adamw"], compute_dtype="float32")
+    return {
+        "arcface_mobilefacenet": {"kind": "arcface", "batch": (crops, labels), "kwargs": dict(
+            num_classes=TRAIN_IDS, seed=SEED, learning_rate=PARITY_LR["arcface"],
+            compute_dtype="float32")},
+        "spoof": {"kind": "spoof", "batch": spoof, "kwargs": adamw},
+        "detector": {"kind": "detector", "batch": det, "kwargs": {**adamw, "det_size": DET_TRAIN[0]}},
+    }
+
+
+def hold_mesh_steps(dev, got: dict, cases: dict, on: str) -> dict:
+    """Each case's step over a process mesh (train_case's rank-0 result)
+    against the same trainer's one-process step on dev, f32 and TF32 off,
+    by hold_step's bounds; the max errors by case."""
+    from frp_tpu_torch.testing.ranks import BUFFERS, make_trainer, trainer_arrays
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, case in cases.items():
+        tr = make_trainer(case["kind"], None, device=dev, **case["kwargs"])
+        m = tr.train_step(*case["batch"])
+        want, g = trainer_arrays(tr, case["kind"]), got[name]
+        keys = BUFFERS[case["kind"]]
+        out[name] = hold_step(name, (g["metrics"][0], g["params"], {k: g[k] for k in keys}),
+                              (m, want["params"], {k: want[k] for k in keys}),
+                              on, f"one process on {dev}")
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def run_mesh_train(dev) -> dict:
+    """Phase 14 (b): MESH_RANKS gloo processes share the card as a 2 x 2
+    process mesh: the ArcFace (MobileFaceNet, dp x tp), spoof and detector
+    (dp) f32 steps against the one-process steps on the card, and the bf16
+    ArcFace step at phase 12's batch over MESH_STEPS steps (the loss
+    falling; rank 0's synchronized host ms). The ArcFace trainer's state is
+    saved after its step by every rank and restored into a new trainer on
+    each (train_case), and the file holds the classifier and its momentum
+    whole, as gathered."""
+    from frp_tpu_torch.testing.ranks import spawn_ranks, train_case
+
+    cases = mesh_cases()
+    where = f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"
+    tmp = tempfile.mkdtemp(prefix="frp_mesh_ckpt_")
+    ckpt = os.path.join(tmp, "arcface")
+    spec = {"device": where, "backend": "gloo", "n_model": MESH_MODEL, "tf32": False,
+            "cases": {**cases, "arcface_mobilefacenet": {**cases["arcface_mobilefacenet"],
+                                                         "checkpoint": ckpt},
+                      "bf16": bf16_case(MESH_STEPS)}}
+    try:
+        t, spawned = time.perf_counter(), time.time()
+        ranks = spawn_ranks(MESH_RANKS, train_case, spec, timeout=400)
+        seconds, got = time.perf_counter() - t, ranks[0]
+        arc = got["arcface_mobilefacenet"]
+        with np.load(ckpt + ".npz") as f:
+            for key, want in (("params/classifier", arc["params"]["classifier"]),
+                              ("opt/classifier/momentum_buffer", arc["momentum_buffer"]["classifier"])):
+                if not np.array_equal(f[key], want):
+                    raise AssertionError(f"the mesh's checkpoint holds another {key} "
+                                         f"{f[key].shape} than the gathered {want.shape}")
+            ckpt_shape = tuple(f["params/classifier"].shape)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got["seconds"]["entered"] = [r["seconds"]["entered"] - spawned for r in ranks]
+    held = hold_mesh_steps(dev, got, cases, f"the {MESH_RANKS // MESH_MODEL} x {MESH_MODEL} gloo mesh")
+    return dict(held=held, shapes=arc["shapes"], seconds=seconds, ckpt_shape=ckpt_shape,
+                rank_seconds=got["seconds"], **timed_case(got["bf16"]))
+
+
+def bf16_case(steps: int) -> dict:
+    """(b)'s and (c)'s timed case: the bf16 ArcFace step at phase 12's
+    batch and settings."""
+    crops, labels, _ = arcface_batch(TRAIN_BATCH, SEED)
+    return {"kind": "arcface", "batch": (crops, labels), "steps": steps,
+            "kwargs": dict(num_classes=TRAIN_IDS, seed=SEED, learning_rate=TRAIN_LR)}
+
+
+def timed_case(got: dict) -> dict:
+    """The loss (falling, or it raises) and the median ms a step after
+    TRAIN_WARM of a bf16_case result."""
+    losses = [m["loss"] for m in got["metrics"]]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the mesh's bf16 ArcFace loss did not fall: {losses}")
+    return dict(ms=float(np.median(got["ms"][TRAIN_WARM:])), loss=(losses[0], losses[-1]),
+                steps_ms=got["ms"])
+
+
+def run_nccl_rank(dev) -> dict:
+    """Phase 14 (c): a one-rank NCCL group (a 1 x 1 process mesh, which
+    takes the collective path) runs the f32 ArcFace step, held against the
+    one-process step on the card, and the bf16 step at phase 12's batch,
+    beside the same step without a mesh in the same process."""
+    from frp_tpu_torch.testing.ranks import spawn_ranks, train_case
+
+    cases = {"arcface_mobilefacenet": mesh_cases()["arcface_mobilefacenet"]}
+    t = time.perf_counter()
+    got = spawn_ranks(1, train_case, {"device": f"cuda:{dev.index or 0}", "tf32": False, "cases": {
+        **cases, "bf16": bf16_case(MESH_STEPS),
+        "alone": {**bf16_case(MESH_STEPS), "mesh": False}}}, timeout=300)[0]
+    seconds = time.perf_counter() - t
+    return dict(held=hold_mesh_steps(dev, got, cases, "a one-rank NCCL group"), seconds=seconds,
+                rank_seconds=got["seconds"], alone=timed_case(got["alone"]),
+                **timed_case(got["bf16"]))
+
+
+def run_mesh_fl(dev) -> dict:
+    """Phase 14 (d): the FL service over a mesh of the card repeated
+    MESH_DATA times aggregates two clients: backend mesh_psum[2], the result
+    the f32 mean bit for bit (each client's f32 half on its position, one
+    add) and the numpy mean within 1e-6 relative."""
+    from frp_tpu_torch.parallel import make_mesh
+    from frp_tpu_torch.platform.federated import FederatedService
+
+    tmp = tempfile.mkdtemp(prefix="frp_fl_mesh_")
+    try:
+        svc = FederatedService(weights_dir=tmp, mesh=make_mesh(n_data=MESH_DATA,
+                                                               devices=[dev] * MESH_DATA))
+        rng = np.random.default_rng(SEED)
+        ups = {c: {"w": rng.normal(size=(128, 64)), "b": rng.normal(size=64)}
+               for c in ("site_a", "site_b")}
+        for c, u in ups.items():
+            svc.upload_weights(c, {k: v.tolist() for k, v in u.items()})
+        res = svc.aggregate(client_ids=list(ups))
+        model = svc.get_weights(res["global_model"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if res["backend"] != f"mesh_psum[{MESH_DATA}]":
+        raise AssertionError(f"the FL aggregate ran on {res['backend']}")
+    rel = 0.0
+    for k in ("w", "b"):
+        a, b = (np.asarray(ups[c][k], np.float32) for c in ups)
+        if not np.array_equal(model[k], (np.float32(0.5) * a + np.float32(0.5) * b).astype(np.float64)):
+            raise AssertionError(f"the mesh FL aggregate's {k} is not the f32 mean")
+        mean = (ups["site_a"][k] + ups["site_b"][k]) / 2
+        rel = max(rel, float(np.abs(model[k] - mean).max() / np.abs(mean).max()))
+    if rel > 1e-6:
+        raise AssertionError(f"the mesh FL aggregate is {rel} from the numpy mean")
+    return dict(backend=res["backend"], layers=res["layer_count"], rel=rel)
+
+
 def gpu_name_and_limit() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2550,7 +2839,53 @@ def main() -> int:
         + f"; launches {imp['launches']} over {imp['batches']} batches (kernels 1 and 2 once a "
         f"batch); phase 13 took {time.perf_counter() - t_import:.1f} s on {smi}")
 
-    counts = {name: sum(ph["launches"][name] for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp))
+    t_mesh = time.perf_counter()
+    me = run_mesh_engine(dev, scenes, TICKS, WARM)
+    say("mesh", f"(a) the engine over a mesh of the card x {MESH_DATA} (default profile, "
+        f"{FRAMES // MESH_DATA} frames a shard), phase 4's stream, {TICKS} ticks: launches "
+        f"{me['stream_launches']} over {me['batches']} batches (kernels 1 and 2 once a shard); "
+        f"steady {me['frames_per_s']:.1f} frames/s, {me['faces_per_batch']:.2f} faces/batch, "
+        f"{me['ms_per_batch']:.2f} ms/batch against phase 4's {scan['ms_per_batch']:.2f}; host "
+        f"syncs a batch {me['syncs']['sharded']} sharded, {me['syncs']['unsharded']} unsharded "
+        "(torch's sync debug mode)")
+    b = me["bf16"]
+    say("mesh", f"(a) bf16, sharded against unsharded on the card, {b['frames']} frames, "
+        f"{b['slots']} faces, gallery {me['gallery']}: valid differ {b['valid_diff']}, count "
+        f"differ {b['count_diff']}, off {b['off_bf16']} (same anchor {b['off_same_anchor']}), "
+        f"anchor flips {b['anchor_flips']} (not a near tie {b['flips_not_tied']}), best_idx "
+        f"differ {b['best_idx_diff']}; min cosine {b['cos_min']:.5f}, boxes {b['box_px']:.3g} px; "
+        f"f32, TF32 off, 3 payloads, {me['f32_faces']} faces: valid, count, best_idx equal; max "
+        "abs err " + ", ".join(f"{k} {v:.3g}" for k, v in me["f32_max_abs_err"].items()))
+    mt = run_mesh_train(dev)
+    rs = mt["rank_seconds"]
+    say("mesh", f"(b) {MESH_RANKS} gloo processes on the card, a {mt['shapes']['mesh']} process "
+        f"mesh ({mt['seconds']:.1f} s with their start; the ranks entered at "
+        + ", ".join(f"{x:.1f}" for x in rs["entered"]) + " s, rank 0's s by part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rs.items() if k != "entered")
+        + f"): ArcFace classifier shard "
+        f"{mt['shapes']['classifier']}, saved whole {mt['ckpt_shape']} and restored on every "
+        "rank; f32 steps against one process on the card, max errors "
+        + "; ".join(f"{n} " + ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+                    for n, e in mt["held"].items()))
+    say("mesh", f"(b) bf16 ArcFace MobileFaceNet, batch {TRAIN_BATCH} over the mesh: loss "
+        f"{mt['loss'][0]:.3f} -> {mt['loss'][1]:.3f} over {MESH_STEPS} steps; {mt['ms']:.2f} ms a "
+        f"step (rank 0's synchronized host clock, median after {TRAIN_WARM}) against phase 12's "
+        f"{tr['arcface']['mobilefacenet']['host_ms']:.2f} on one process")
+    nc = run_nccl_rank(dev)
+    say("mesh", f"(c) a one-rank NCCL group ({nc['seconds']:.1f} s with its start; s by part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in nc["rank_seconds"].items() if k != "entered")
+        + "): the f32 ArcFace step against one process, max errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in nc["held"]["arcface_mobilefacenet"].items())
+        + f"; bf16 at batch {TRAIN_BATCH}: loss {nc['loss'][0]:.3f} -> {nc['loss'][1]:.3f}, "
+        f"{nc['ms']:.2f} ms a step over the one-rank mesh, {nc['alone']['ms']:.2f} without a "
+        f"mesh in the same process, phase 12's {tr['arcface']['mobilefacenet']['host_ms']:.2f}")
+    fl = run_mesh_fl(dev)
+    say("mesh", f"(d) the FL service over the mesh: backend {fl['backend']}, {fl['layers']} layers, "
+        f"the f32 mean bit for bit, {fl['rel']:.3g} from the numpy mean; phase 14 took "
+        f"{time.perf_counter() - t_mesh:.1f} s on {smi}")
+
+    counts = {name: sum(ph["launches"][name]
+                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me))
               for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -2,14 +2,17 @@
 server (port of ``frp_tpu/api/main.py``).
 
     python -m frp_tpu_torch.api.main [--device cuda|cpu] [--port 8000]
-        [--scan-interval S] [--no-warmup]
+        [--scan-interval S] [--no-warmup] [--mesh auto|off]
 
 The engine runs on the card unless ``--device cpu`` is given; without a
 card the default raises. ``build_app`` mounts the JAX app's route table:
 the root, status and debug routes and the camera, face, federated,
 deepfake, alerts, snapshot, async-task, dashboard and frontend routes, in
-the JAX order. The JAX app's ``--mesh`` option is not ported yet (ROADMAP,
-Queue 1 item 5).
+the JAX order. ``--mesh auto`` (or ``FRP_MESH=auto``) brings up
+``torch.distributed`` from the environment when one is configured and, with
+more than one local card, serves over a mesh of them: the engine splits the
+scan batch over the cards (its rows must divide their count) and the FL
+combine runs over them (``frp_tpu/api/main.py:207-230``).
 
 One difference from the JAX server: a failed warmup raises. On the card
 the first warmup is where nvcc builds the kernels, and a server that went
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 import asyncio
 import os
+
+import torch
 
 from frp_tpu_torch.api.http import HTTPServer, Request, Router, json_response
 from frp_tpu_torch.api.routes import (
@@ -135,11 +140,12 @@ async def serve(
     warmup: bool = True,
     ready=None,
     device=None,
+    mesh=None,
 ):
     """Run the server until cancelled. ``ready``, when given, is called
     with the bound (host, port) once the server listens (port 0 picks a free
-    one). ``device`` is the engine's when ``ctx`` is None."""
-    router, sio, ctx = build_app(ctx, device=device)
+    one). ``device`` or ``mesh`` is the engine's when ``ctx`` is None."""
+    router, sio, ctx = build_app(ctx, device=device, mesh=mesh)
     server = HTTPServer(router, ws_handler=sio.handle_upgrade,
                         allowed_origins=ctx.cfg.frontend_origins)
     ctx.startup()
@@ -200,7 +206,26 @@ async def serve(
         ctx.shutdown()
 
 
-def main(argv: list[str] | None = None):
+def serving_mesh(mode: str, device: str):
+    """The mesh ``--mesh`` asks for: None for "off"; for "auto",
+    torch.distributed comes up from the environment (a no-op alone) and,
+    when this process has more than one local card, a mesh over them
+    (``parallel.make_mesh``); one card, or the CPU, serves without one, as
+    the JAX server does with one device."""
+    if mode == "off":
+        return None
+    from frp_tpu_torch.parallel import distributed_initialize, make_mesh
+
+    dev = torch.device(device)
+    dist = distributed_initialize(device=dev)
+    if dev.type != "cuda" or torch.cuda.device_count() <= 1:
+        return None
+    mesh = make_mesh()
+    logger.info("serving over a %d-device mesh (distributed: %s)", mesh.devices.size, dist)
+    return mesh
+
+
+def parse_args(argv: list[str] | None = None):
     import argparse
 
     p = argparse.ArgumentParser(description="face recognition platform, PyTorch/CUDA port")
@@ -219,7 +244,21 @@ def main(argv: list[str] | None = None):
         help="the engine's torch device: cuda (the default; raises without a "
         "card) or cpu",
     )
-    args = p.parse_args(argv)
+    p.add_argument(
+        "--mesh",
+        choices=["auto", "off"],
+        default=os.getenv("FRP_MESH", "off"),
+        help="auto: bring up torch.distributed (from FRP_COORDINATOR et al. or "
+        "torchrun's variables; a no-op alone) and split the scan batch over "
+        "every local card. Requires the camera count to be divisible by the "
+        "card count.",
+    )
+    return p.parse_args(argv)
+
+
+def main(argv: list[str] | None = None):
+    args = parse_args(argv)
+    mesh = serving_mesh(args.mesh, args.device)
 
     def ready(addr):
         print(f"serving on http://{addr[0]}:{addr[1]}", flush=True)
@@ -231,7 +270,8 @@ def main(argv: list[str] | None = None):
             scan_interval=args.scan_interval,
             warmup=not args.no_warmup,
             ready=ready,
-            device=args.device,
+            device=None if mesh is not None else args.device,
+            mesh=mesh,
         )
     )
 

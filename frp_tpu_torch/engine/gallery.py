@@ -2,7 +2,9 @@
 
 A padded [capacity, D] matrix plus a validity mask on the engine's device,
 with names on the host. Capacity grows by doubling; removal swaps the last
-row into the freed slot so the valid rows stay contiguous.
+row into the freed slot so the valid rows stay contiguous. An engine over a
+mesh takes a copy of the device view for each data position's device
+(``device_views``), made again after the gallery changes.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ class DeviceGallery:
         self._valid = np.zeros((self._capacity,), bool)
         self._device = None  # lazily materialized (matrix, valid) pair
         self._device_names: list[str] = []  # names snapshot tied to _device
+        self._copies: dict = {}  # other devices' copies of _device
         self._version = 0
 
     def __len__(self) -> int:
@@ -165,6 +168,7 @@ class DeviceGallery:
                     torch.from_numpy(self._valid.copy()).to(self.device),
                 )
                 self._device_names = list(self._names)
+                self._copies = {}
             return self._device
 
     def device_view(self):
@@ -175,6 +179,26 @@ class DeviceGallery:
         with self._lock:
             mat, valid = self.device_arrays()
             return mat, valid, self._device_names
+
+    def device_views(self, devices: list):
+        """([(matrix, valid) on each of ``devices``], names): one snapshot of
+        the gallery for every data position of a batch, so that all of a
+        batch's shards match against the same version and the names list
+        stays tied to what they matched. A device other than the gallery's
+        gets a copy of its view, kept until the gallery changes."""
+        with self._lock:
+            base = self.device_arrays()
+            views = []
+            for d in devices:
+                d = torch.device(d)
+                if d == self.device:
+                    views.append(base)
+                    continue
+                got = self._copies.get(d)
+                if got is None:
+                    got = self._copies[d] = (base[0].to(d), base[1].to(d))
+                views.append(got)
+            return views, self._device_names
 
     def host_arrays(self):
         """(matrix [N, D] of the enrolled rows, names), host copies."""

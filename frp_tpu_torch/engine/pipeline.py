@@ -21,7 +21,12 @@ through decode + ``nms_padded_batched``, whose greedy pass is kernel 3
 (``ops/nms_cuda.py``). Everything is shape-static: M = max_faces slots per
 frame with validity masks.
 
-Not ported yet (ROADMAP): mesh sharding,
+Over a single-process mesh (``parallel.make_mesh``) the engine keeps a
+replica on each data position's device and splits every batch into
+contiguous equal row shards, one a position; every stage is frame-local, so
+each position runs its own rows, as the JAX engine's ``P("data")`` batch.
+
+Not ported yet (ROADMAP):
 ``build_pipeline``'s ``with_spoof=False``, ``with_quality=False``
 and ``spoof_size``, and the engine's ``with_spoof=False``, which no caller
 of the port sets.
@@ -73,6 +78,7 @@ from frp_tpu_torch.ops.image import (
 from frp_tpu_torch.ops.matching import gallery_match
 from frp_tpu_torch.ops.nms import nms_padded_batched
 from frp_tpu_torch.ops.quality import assess_quality_batch
+from frp_tpu_torch.parallel.mesh import DATA_AXIS, data_rows
 from frp_tpu_torch.utils.fingerprint import weights_fingerprint
 from frp_tpu_torch.utils.logger import get_logger
 
@@ -481,16 +487,36 @@ class RecognitionEngine:
     ``device="cpu"`` runs every stage on the CPU, where the kernels' plain
     versions stand in for them. Thread-safe for concurrent callers of the
     metrics; batches are dispatched in call order.
+
+    ``mesh`` (a single-process ``parallel.Mesh``, in place of ``device``):
+    one replica (parameters, priors, stages, copy stream, resident delta
+    shard) on each data position's device ``mesh.devices[i, 0]``. Every
+    batch is split into contiguous equal row shards, one a position, and a
+    batch whose rows the data axis does not divide raises a ValueError, as
+    the JAX engine's ``device_put`` does (enrolment's B=1 included). The
+    stages are launched stage by stage across the shards, and a fetch
+    copies each device's results once and joins them in row order.
     """
 
     def __init__(
         self,
         cfg: Config | None = None,
         device=None,
+        mesh=None,
         seed: int = 0,
         allow_stale_calibration: bool = False,
     ):
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass device= or mesh=, not both: the mesh names the devices")
+            if mesh.is_process_mesh:
+                raise ValueError("the engine drives this process's devices: pass a "
+                                 "single-process mesh (parallel.make_mesh)")
+            positions = [resolve_device(mesh.devices[i, 0]) for i in range(mesh.shape[DATA_AXIS])]
+        else:
+            positions = [resolve_device(device)]
+        self.mesh = mesh
+        self.device = positions[0]
         self.cfg = cfg or get_config()
         arch = self.cfg.embedder_arch
         self._allow_stale_calibration = allow_stale_calibration
@@ -508,29 +534,42 @@ class RecognitionEngine:
         }
         self.weights_loaded = self._load_weights(host_params, arch)
         self.distance_scale = self._load_calibration()
-        self.params = {k: convert_params(v, self.device) for k, v in host_params.items()}
         self.gallery = DeviceGallery(embed_dim=self.cfg.embed_dim, device=self.device)
         self.metrics = EngineMetrics()
         self._lock = threading.Lock()
-        self._priors = torch.from_numpy(generate_anchors(self.cfg.det_size).copy()).to(self.device)
-        self._stages = build_stages(
-            device=self.device,
-            det_size=self.cfg.det_size,
-            max_faces=self.cfg.max_faces_per_frame,
-            pre_nms_topk=self.cfg.pre_nms_topk,
-            conf_thresh=self.cfg.det_conf_threshold,
-            nms_thresh=self.cfg.det_nms_threshold,
-            iom_thresh=self.cfg.det_nms_iom_threshold,
-            compute_dtype=self.cfg.compute_dtype,
-            embedder_forward=embedder_forward,
-            flip_tta=self.cfg.embed_flip_tta,
-        )
-        # put_payload's uploads run on a stream of their own, so that they
-        # overlap the scan's work instead of queueing behind it
-        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        priors = generate_anchors(self.cfg.det_size)
+        # one replica a data position; positions on one device share its
+        # parameters, priors and stages (all read-only), not their streams
+        shared: dict = {}
+        self._replicas = []
+        for d in positions:
+            if d not in shared:
+                shared[d] = {
+                    "params": {k: convert_params(v, d) for k, v in host_params.items()},
+                    "priors": torch.from_numpy(priors.copy()).to(d),
+                    "stages": build_stages(
+                        device=d,
+                        det_size=self.cfg.det_size,
+                        max_faces=self.cfg.max_faces_per_frame,
+                        pre_nms_topk=self.cfg.pre_nms_topk,
+                        conf_thresh=self.cfg.det_conf_threshold,
+                        nms_thresh=self.cfg.det_nms_threshold,
+                        iom_thresh=self.cfg.det_nms_iom_threshold,
+                        compute_dtype=self.cfg.compute_dtype,
+                        embedder_forward=embedder_forward,
+                        flip_tta=self.cfg.embed_flip_tta,
+                    ),
+                }
+            # put_payload's uploads run on a stream of their own, so that
+            # they overlap the scan's work instead of queueing behind it
+            stream = torch.cuda.Stream(d) if d.type == "cuda" else None
+            self._replicas.append({**shared[d], "device": d, "stream": stream})
+        first = self._replicas[0]
+        self.params, self._priors, self._stages = first["params"], first["priors"], first["stages"]
         # device-resident previous I420 batch for delta transfer
-        # (submit_encoded); None until the first raw keyframe
-        self._delta_prev = None
+        # (submit_encoded), a shard a position; None until the first raw
+        # keyframe
+        self._resident: list | None = None
         # (enc_id, seq) of the payload the resident batch came from
         self._delta_src: tuple[int, int] | None = None
         self.delta_stats = {"keyframes": 0, "deltas": 0, "desyncs": 0}
@@ -543,6 +582,29 @@ class RecognitionEngine:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.stage_events.append((name, ev))
+
+    @property
+    def _delta_prev(self):
+        """The resident I420 batch, its shards joined in row order on the
+        first position's device (the one shard itself without a mesh)."""
+        if self._resident is None:
+            return None
+        if len(self._resident) == 1:
+            return self._resident[0]
+        return torch.cat([r.to(self.device) for r in self._resident])
+
+    def _rows(self, n: int) -> list[slice]:
+        """The row shard of each data position for an n-row batch."""
+        if self.mesh is None:
+            return [slice(None)]
+        return data_rows(n, self.mesh)
+
+    @staticmethod
+    def _on(rep: dict):
+        """A context that makes a replica's device the current CUDA device,
+        so that its kernels launch there."""
+        d = rep["device"]
+        return torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext()
 
     # -- weights ----------------------------------------------------------
     def _load_calibration(self) -> float:
@@ -673,56 +735,101 @@ class RecognitionEngine:
         return loaded
 
     # -- staged dispatch --------------------------------------------------
-    def _upload(self, arr: np.ndarray, copy: bool = False) -> torch.Tensor:
-        """numpy -> engine device. ``copy`` forces a private copy on the CPU
-        (``torch.from_numpy`` aliases numpy memory); the card always gets
-        its own copy, staged through pinned memory so the transfer does not
-        wait for the work already queued."""
+    def _upload(self, arr: np.ndarray, copy: bool = False, device=None) -> torch.Tensor:
+        """numpy -> the engine's device (or ``device``). ``copy`` forces a
+        private copy on the CPU (``torch.from_numpy`` aliases numpy memory);
+        the card always gets its own copy, staged through pinned memory so
+        the transfer does not wait for the work already queued."""
+        device = self.device if device is None else device
         if copy or not arr.flags.writeable:
             arr = np.array(arr, copy=True)
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
-    def _payload_tensor(self, x, dtype, copy: bool = False) -> torch.Tensor:
-        """A payload array on the engine's device. A tensor (``put_payload``'s)
-        is taken as it is where it already lies there, and marked as used by
-        the current stream, so that the caching allocator does not hand its
-        memory out while this stream's work may still read it; anything else
-        is uploaded (``copy`` as in ``_upload``)."""
+    def _payload_tensor(self, x, dtype, copy: bool = False, device=None) -> torch.Tensor:
+        """A payload array on the engine's device (or ``device``). A tensor
+        (``put_payload``'s) is taken as it is where it already lies there,
+        and marked as used by the current stream, so that the caching
+        allocator does not hand its memory out while this stream's work may
+        still read it; anything else is uploaded (``copy`` as in
+        ``_upload``)."""
+        device = self.device if device is None else device
         if isinstance(x, torch.Tensor):
-            x = x.to(self.device, getattr(torch, np.dtype(dtype).name))
+            x = x.to(device, getattr(torch, np.dtype(dtype).name))
             if x.is_cuda:
                 x.record_stream(torch.cuda.current_stream(x.device))
             return x
-        return self._upload(np.asarray(x, dtype=dtype), copy=copy)
+        return self._upload(np.asarray(x, dtype=dtype), copy=copy, device=device)
 
-    def _run_stages(self, frames_dev, tolerance: float, fmt: str = "rgb", packed: bool = True):
-        """Chain the stages; returns (device result, gallery names snapshot
-        tied to the gallery tensors this batch matched against). The result
-        is the packed [B, M, 22] tensor, or with packed=False the full dict
-        (embeddings and top-k included)."""
-        gal, gal_valid, gal_names = self.gallery.device_view()
+    def _shards(self, x, dtype, copy: bool = False, side: bool = False) -> list:
+        """A payload array as one tensor a data position: its row shards on
+        their devices (``put_payload``'s list of shards is taken shard by
+        shard). ``side`` puts each shard's upload on its position's copy
+        stream and waits for them all."""
+        reps = self._replicas
+        if isinstance(x, list):
+            parts = x
+        elif len(reps) == 1:
+            parts = [x]
+        else:
+            parts = [x[r] for r in self._rows(len(x))]
+        out = []
+        for part, rep in zip(parts, reps):
+            stream = rep["stream"] if side else None
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                out.append(self._payload_tensor(part, dtype, copy, rep["device"]))
+        if side:
+            for rep in reps:
+                if rep["stream"] is not None:
+                    rep["stream"].synchronize()
+        return out
+
+    def _frames(self, frames: np.ndarray) -> list:
+        """A host frame batch uploaded as row shards, one a position."""
+        return [self._upload(frames[r], device=rep["device"])
+                for r, rep in zip(self._rows(frames.shape[0]), self._replicas)]
+
+    def _run_stages(self, shards: list, tolerance: float, fmt: str = "rgb", packed: bool = True):
+        """Chain the stages over the row shards (one tensor a position),
+        stage by stage across them; returns (a device result a shard, the
+        gallery names snapshot tied to the gallery tensors this batch
+        matched against). A result is the packed [b, M, 22] tensor, or with
+        packed=False the full dict (embeddings and top-k included)."""
+        reps = self._replicas
+        views, gal_names = self.gallery.device_views([r["device"] for r in reps])
+
+        def each(fn):
+            """fn(k, replica) for every shard k, on its replica's device."""
+            out = []
+            for k, rep in enumerate(reps):
+                with self._on(rep):
+                    out.append(fn(k, rep))
+            return out
+
+        frames = list(shards)
         if fmt == "yuv420":
-            frames_dev = self._stages["ingest"](frames_dev)
+            frames = each(lambda k, r: r["stages"]["ingest"](frames[k]))
             self._mark("ingest")
-        dets = self._stages["detect"](self.params["detector"], frames_dev, self._priors)
+        dets = each(lambda k, r: r["stages"]["detect"](r["params"]["detector"], frames[k],
+                                                       r["priors"]))
         self._mark("detect")
-        cropped = self._stages["crop"](frames_dev, dets)
+        cropped = each(lambda k, r: r["stages"]["crop"](frames[k], dets[k]))
         self._mark("crop")
-        emb = self._stages["embed"](
-            self.params, cropped["crops"], dets["valid"], self.distance_scale)
+        emb = each(lambda k, r: r["stages"]["embed"](r["params"], cropped[k]["crops"],
+                                                     dets[k]["valid"], self.distance_scale))
         self._mark("embed")
+        tol = float(tolerance)
         if packed:
-            out = self._stages["match_pack"](
-                dets, cropped, emb, gal, gal_valid, float(tolerance))
+            out = each(lambda k, r: r["stages"]["match_pack"](dets[k], cropped[k], emb[k],
+                                                              *views[k], tol))
             self._mark("match_pack")
             return out, gal_names
-        matched = self._stages["match"](
-            emb["embeddings_flat"], dets["valid"], gal, gal_valid, float(tolerance))
+        matched = each(lambda k, r: r["stages"]["match"](emb[k]["embeddings_flat"],
+                                                         dets[k]["valid"], *views[k], tol))
         self._mark("match")
-        return full_tree(dets, cropped, emb, matched), gal_names
+        return [full_tree(*parts) for parts in zip(dets, cropped, emb, matched)], gal_names
 
     def _record(self, b: int, count: np.ndarray, seconds: float) -> None:
         with self._lock:
@@ -745,8 +852,8 @@ class RecognitionEngine:
             frames = frames[None]
         b = frames.shape[0]
         t0 = time.perf_counter()
-        out, gal_names = self._run_stages(self._upload(frames), tolerance, fmt, packed=False)
-        out = dict(zip(out.keys(), to_host(list(out.values()))))
+        outs, gal_names = self._run_stages(self._frames(frames), tolerance, fmt, packed=False)
+        out = self._host_results([outs])[0]
         out["gallery_names"] = gal_names
         dt = time.perf_counter() - t0
         if record_metrics:
@@ -807,8 +914,8 @@ class RecognitionEngine:
         frames = np.ascontiguousarray(frames, dtype=np.uint8)
         if frames.ndim == 3 and fmt == "rgb":
             frames = frames[None]
-        out, gal_names = self._run_stages(self._upload(frames), tolerance, fmt, packed)
-        return out, frames.shape[0], packed, gal_names, time.perf_counter()
+        outs, gal_names = self._run_stages(self._frames(frames), tolerance, fmt, packed)
+        return outs, frames.shape[0], packed, gal_names, time.perf_counter()
 
     @torch.no_grad()
     def submit_encoded(self, enc, tolerance: float | None = None, packed: bool = True):
@@ -826,15 +933,15 @@ class RecognitionEngine:
             # COPY: the upload is retained as the resident batch, and on the
             # CPU torch.from_numpy aliases numpy memory — a caller reusing
             # its batch buffer would corrupt every later reconstruction
-            frames_dev = self._payload_tensor(enc[1], np.uint8, copy=True)
+            shards = self._shards(enc[1], np.uint8, copy=True)
             self.delta_stats["keyframes"] += 1
-            self._delta_prev = frames_dev
+            self._resident = shards
             if tag is not None:
                 self._delta_src = tag
-            out, gal_names = self._run_stages(frames_dev, tolerance, "yuv420", packed)
-            return out, int(frames_dev.shape[0]), packed, gal_names, time.perf_counter()
+            outs, gal_names = self._run_stages(shards, tolerance, "yuv420", packed)
+            return outs, sum(int(x.shape[0]) for x in shards), packed, gal_names, time.perf_counter()
         _, idx, blocks = enc
-        if self._delta_prev is None:
+        if self._resident is None:
             raise RuntimeError(
                 "delta payload before any raw keyframe (encoder/engine state "
                 "out of sync — call DeltaEncoder.reset())"
@@ -850,16 +957,21 @@ class RecognitionEngine:
                     f"{want_seq + 1}). Reset the encoder; the next encode "
                     "ships a raw keyframe."
                 )
-        idx_dev = self._payload_tensor(idx, np.int64)
-        blocks_dev = self._payload_tensor(blocks, np.uint8)
-        new_prev, rgb_dev = self._stages["delta_ingest"](self._delta_prev, idx_dev, blocks_dev)
+        idx_sh = self._shards(idx, np.int64)
+        blocks_sh = self._shards(blocks, np.uint8)
+        new, rgb = [], []
+        for rep, prev, i, bl in zip(self._replicas, self._resident, idx_sh, blocks_sh):
+            with self._on(rep):
+                p, f = rep["stages"]["delta_ingest"](prev, i, bl)
+            new.append(p)
+            rgb.append(f)
         self._mark("delta_ingest")
         self.delta_stats["deltas"] += 1
-        self._delta_prev = new_prev
+        self._resident = new
         if tag is not None:
             self._delta_src = tag
-        out, gal_names = self._run_stages(rgb_dev, tolerance, "rgb", packed)
-        return out, int(rgb_dev.shape[0]), packed, gal_names, time.perf_counter()
+        outs, gal_names = self._run_stages(rgb, tolerance, "rgb", packed)
+        return outs, sum(int(x.shape[0]) for x in rgb), packed, gal_names, time.perf_counter()
 
     @torch.no_grad()
     def put_payload(self, enc):
@@ -872,18 +984,19 @@ class RecognitionEngine:
         a half-written block. A raw keyframe is copied (it becomes the
         resident batch, as in ``submit_encoded``); arrays that are tensors on
         the device already are kept as they are. Payloads must still reach
-        ``submit_encoded`` in encode order (the seq guard enforces it)."""
+        ``submit_encoded`` in encode order (the seq guard enforces it). Over
+        a mesh each array becomes a list of row shards, each uploaded on its
+        position's copy stream."""
         tag = (enc.enc_id, enc.seq) if hasattr(enc, "enc_id") and hasattr(enc, "seq") else None
-        side = self._copy_stream
-        with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
-            if enc[0] == "raw":
-                data = ("raw", self._payload_tensor(enc[1], np.uint8, copy=True))
-            else:
-                _, idx, blocks = enc
-                data = ("delta", self._payload_tensor(idx, np.int64),
-                        self._payload_tensor(blocks, np.uint8))
-        if side is not None:
-            side.synchronize()
+
+        def put(x, dtype, copy=False):
+            shards = self._shards(x, dtype, copy, side=True)
+            return shards[0] if len(shards) == 1 else shards
+
+        if enc[0] == "raw":
+            data = ("raw", put(enc[1], np.uint8, copy=True))
+        else:
+            data = ("delta", put(enc[1], np.int64), put(enc[2], np.uint8))
         return DeltaPayload(data, *tag) if tag is not None else data
 
     def precompile_delta_rungs(self, block: int | None = None) -> int:
@@ -895,11 +1008,10 @@ class RecognitionEngine:
         ``submit_encoded`` first; returns the number of rungs run (0 with no
         resident batch or a shape that does not block-align). ``block`` is
         the encoder's block size, FRP_DELTA_BLOCK (128) when None."""
-        if self._delta_prev is None:
+        if self._resident is None:
             return 0
-        shape = self._delta_prev.shape
-        b = int(shape[0])
-        nbytes = int(np.prod(shape[1:]))
+        b = sum(int(x.shape[0]) for x in self._resident)
+        nbytes = int(np.prod(self._resident[0].shape[1:]))
         block = block or int(os.getenv("FRP_DELTA_BLOCK", "128"))
         if b == 0 or nbytes % block:
             return 0
@@ -931,14 +1043,35 @@ class RecognitionEngine:
         in submission order."""
         if not handles:
             return []
-        leaves = [[o] if is_packed else list(o.values()) for o, _, is_packed, _, _ in handles]
-        host = iter(to_host([t for group in leaves for t in group]))
+        results = self._host_results([outs for outs, *_ in handles])
         now = time.perf_counter()
-        results = []
-        for (o, b, is_packed, gal_names, t_submit), group in zip(handles, leaves):
-            arrays = [next(host) for _ in group]
-            out = unpack_packed(arrays[0]) if is_packed else dict(zip(o.keys(), arrays))
+        for out, (_, b, _, gal_names, t_submit) in zip(results, handles):
             out["gallery_names"] = gal_names
             self._record(b, out["count"], max(0.0, now - t_submit))
-            results.append(out)
+        return results
+
+    def _host_results(self, batches: list) -> list:
+        """Device results (a list of shard results a batch: packed tensors
+        or full dicts) -> host dicts in batch order. Each device's leaves are
+        joined and copied to the host once (``to_host``); a batch's shards
+        are then joined in row order."""
+        by_device: dict = {}
+        for outs in batches:
+            for k, o in enumerate(outs):
+                leaves = [o] if isinstance(o, torch.Tensor) else list(o.values())
+                by_device.setdefault(self._replicas[k]["device"], []).extend(leaves)
+        host = {d: iter(to_host(ts)) for d, ts in by_device.items()}
+        results = []
+        for outs in batches:
+            parts = []
+            for k, o in enumerate(outs):
+                it = host[self._replicas[k]["device"]]
+                n = 1 if isinstance(o, torch.Tensor) else len(o)
+                parts.append([next(it) for _ in range(n)])
+            arrays = [p[0] if len(parts) == 1 else np.concatenate(p, axis=0)
+                      for p in zip(*parts)]
+            if isinstance(outs[0], torch.Tensor):
+                results.append(unpack_packed(arrays[0]))
+            else:
+                results.append(dict(zip(outs[0].keys(), arrays)))
         return results

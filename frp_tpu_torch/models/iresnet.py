@@ -39,21 +39,23 @@ def _block_init(rng, cin, cout, stride):
     return p
 
 
-def _bn(p: dict, name: str, y: torch.Tensor, stats: dict | None, path: tuple) -> torch.Tensor:
+def _bn(p: dict, name: str, y: torch.Tensor, stats: dict | None, path: tuple,
+        group=None) -> torch.Tensor:
     """The bare BN unit p[name]: folded, or (with ``stats``) batch
-    statistics, its new running stats stored under path + (name,)."""
+    statistics, over ``group``'s global batch when one is given, its new
+    running stats stored under path + (name,)."""
     if stats is None:
         return nn.batch_norm(p[name], y)
-    y, stats[path + (name,)] = nn.batch_norm(p[name], y, train=True)
+    y, stats[path + (name,)] = nn.batch_norm(p[name], y, train=True, group=group)
     return y
 
 
-def _block(p, x, stride, stats=None, path=()):
-    y = nn.conv(p["conv1"], _bn(p, "bn1", x, stats, path))
-    y = nn.prelu(p["prelu"], _bn(p, "bn2", y, stats, path))
-    y = _bn(p, "bn3", nn.conv(p["conv2"], y, stride=stride), stats, path)
+def _block(p, x, stride, stats=None, path=(), group=None):
+    y = nn.conv(p["conv1"], _bn(p, "bn1", x, stats, path, group))
+    y = nn.prelu(p["prelu"], _bn(p, "bn2", y, stats, path, group))
+    y = _bn(p, "bn3", nn.conv(p["conv2"], y, stride=stride), stats, path, group)
     if "down_conv" in p:
-        x = _bn(p, "down_bn", nn.conv(p["down_conv"], x, stride=stride), stats, path)
+        x = _bn(p, "down_bn", nn.conv(p["down_conv"], x, stride=stride), stats, path, group)
     return x + y
 
 
@@ -84,25 +86,27 @@ def init_iresnet(rng_or_seed=0, variant: str = "iresnet18", embed_dim: int = 128
 
 
 def iresnet_forward(params: dict, x: torch.Tensor, normalize: bool = True,
-                    train: bool = False):
+                    train: bool = False, bn_group=None):
     """x: [B, 112, 112, 3] normalized crops, NHWC, any float dtype. Returns
     [B, D] float32 embeddings (L2-normalized unless normalize=False). With
     train=True returns (embeddings, bn_stats): bn_stats maps param-tree paths
     whose last element names a bare BN unit (("stages", 0, 1, "bn2"),
     ("head_bn",), ...) to its updated running stats, as
-    ``frp_tpu/models/iresnet.py``."""
+    ``frp_tpu/models/iresnet.py``; ``bn_group`` (a data process group)
+    takes the statistics over its global batch (``nn.batch_norm``)."""
     stats: dict | None = {} if train else None
+    g = bn_group
     y = nn.conv(params["stem"], x.permute(0, 3, 1, 2))
-    y = nn.prelu(params["stem_prelu"], _bn(params, "stem_bn", y, stats, ()))
+    y = nn.prelu(params["stem_prelu"], _bn(params, "stem_bn", y, stats, (), g))
     for si, stage in enumerate(params["stages"]):
         for b, block in enumerate(stage):
-            y = _block(block, y, 2 if b == 0 else 1, stats, ("stages", si, b))
-    y = _bn(params, "head_bn", y, stats, ())
+            y = _block(block, y, 2 if b == 0 else 1, stats, ("stages", si, b), g)
+    y = _bn(params, "head_bn", y, stats, (), g)
     # the activations are logically NCHW, so a reshape flattens in (c, h, w)
     # order, the order the fc's inputs index (the JAX package transposes its
     # NHWC map to NCHW first); reshape copies a channels-last map as needed
     emb = nn.dense(params["fc"], y.reshape(y.shape[0], -1)).to(torch.float32)
-    emb = _bn(params, "feat_bn", emb, stats, ())  # 1-D feature BN
+    emb = _bn(params, "feat_bn", emb, stats, (), g)  # 1-D feature BN
     if normalize:
         emb = nn.l2_normalize(emb)
     return (emb, stats) if train else emb

@@ -35,7 +35,10 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from frp_tpu_torch.parallel.collectives import reduce_sum
 
 # ---------------------------------------------------------------------------
 # init helpers: numpy, identical draws to frp_tpu/models/nn.py
@@ -161,7 +164,7 @@ def conv(p: dict, x: torch.Tensor, stride: int = 1, padding: str = "SAME", group
 
 
 def batch_norm(p: dict, x: torch.Tensor, train: bool = False, momentum: float = 0.9,
-               eps: float = 1e-5):
+               eps: float = 1e-5, group=None):
     """BN over x's channel axis: [B, C, H, W] (NCHW) or [B, C] (a feature BN,
     as iresnet's ``feat_bn``).
 
@@ -177,11 +180,19 @@ def batch_norm(p: dict, x: torch.Tensor, train: bool = False, momentum: float = 
     ``F.batch_norm``'s own running update would take the unbiased variance
     and weigh the old value by 1 - momentum, so it is given no running
     stats and they are computed here, outside the graph (the JAX step reads
-    them as an auxiliary output, which its gradient does not reach)."""
+    them as an auxiliary output, which its gradient does not reach).
+
+    ``group`` (a data process group, with ``train=True``): the statistics of
+    the global batch, every rank holding as many rows, as the JAX package's
+    global program takes them: the f32 sum over the group, then the sum of
+    squared deviations from the global mean over the group, each through an
+    all-reduce whose backward sums every rank's gradient."""
     if x.dim() not in (2, 4):
         raise ValueError(f"batch_norm takes [B, C] or [B, C, H, W], got {tuple(x.shape)}")
     if train:
         dims = (0, 2, 3) if x.dim() == 4 else (0,)
+        if group is not None:
+            return _batch_norm_global(p, x, dims, momentum, eps, group)
         with torch.no_grad():
             var, mean = torch.var_mean(x.to(torch.float32), dim=dims, correction=0)
             new = {"mean": momentum * p["mean"] + (1 - momentum) * mean,
@@ -203,6 +214,23 @@ def batch_norm(p: dict, x: torch.Tensor, train: bool = False, momentum: float = 
             p.setdefault("_folded", {})[key] = folded
     scale, shift = folded
     return x * scale + shift
+
+
+def _batch_norm_global(p: dict, x: torch.Tensor, dims: tuple, momentum: float, eps: float,
+                       group):
+    """Training BN over the global batch of a data group (``batch_norm``)."""
+    xf = x.to(torch.float32)
+    count = (xf.numel() // xf.shape[1]) * dist.get_world_size(group)
+    shape = (1, -1, 1, 1) if x.dim() == 4 else (1, -1)
+    mean = reduce_sum(xf.sum(dim=dims), group) / count
+    d = xf - mean.reshape(shape)
+    var = reduce_sum((d * d).sum(dim=dims), group) / count
+    y = d * torch.rsqrt(var + eps).reshape(shape) * p["gamma"].reshape(shape) \
+        + p["beta"].reshape(shape)
+    with torch.no_grad():
+        new = {"mean": momentum * p["mean"] + (1 - momentum) * mean,
+               "var": momentum * p["var"] + (1 - momentum) * var}
+    return y.to(x.dtype), new
 
 
 def prelu(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,8 @@ Semantics preserved exactly:
 
 ``fedavg_combine`` runs on host numpy arrays in float64 (the HTTP JSON
 path, and the only one ``platform/federated.py`` takes). ``fedavg_tree`` is
-the same weighted sum over a dict of stacked torch tensors; the mesh psum
-that wraps it in the JAX package waits for the multi-process slice (ROADMAP,
-Queue 1 item 5).
+the same weighted sum over a dict of stacked torch tensors;
+``parallel/fedavg.py::fedavg_sharded`` splits it over a mesh.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@
 It owns a port ``RecognitionEngine`` (built on the card unless the caller
 names another device, or injected), the store, the cipher, the cameras and
 every service of the JAX context: face service, tracking, alerts, deepfake,
-federated learning, async tasks, health, thumbnails, tracer and timers. The
-JAX context's ``mesh`` is not ported (ROADMAP, Queue 1 item 5).
+federated learning, async tasks, health, thumbnails, tracer and timers. A
+``mesh`` (a single-process ``parallel.Mesh``) goes to the engine, which
+splits every batch over its data positions, and to the FL service, whose
+combine then runs over it, as the JAX context's does.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class AppContext:
         engine=None,
         camera_configs: list | None = None,
         device=None,
+        mesh=None,
     ):
         self.cfg = cfg or get_config()
         setup_logger(
@@ -87,12 +90,12 @@ class AppContext:
             disabled=self.cfg.disable_encryption,     # DISABLE_ENCRYPTION
         )
 
-        # engine (injectable for tests); the card unless `device` says
-        # otherwise, and no card raises
+        # engine (injectable for tests); the card unless `device` or `mesh`
+        # says otherwise, and no card raises
         if engine is None:
             from frp_tpu_torch.engine.pipeline import RecognitionEngine
 
-            engine = RecognitionEngine(self.cfg, device=device)
+            engine = RecognitionEngine(self.cfg, device=device, mesh=mesh)
         self.engine = engine
 
         # shared state
@@ -173,6 +176,7 @@ class AppContext:
             weights_dir=self.cfg.fl_path(),  # FL_DIR
             min_clients=self.cfg.fl_min_clients,
             history_limit=self.cfg.fl_history_limit,
+            mesh=mesh,
         )
         self.async_tasks = AsyncTaskManager(
             face_service=self.face_service,

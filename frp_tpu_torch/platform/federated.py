@@ -13,10 +13,10 @@ persistence layout (``data/fl_weights/{client}.json`` and
 (equal or contribution-proportional :605-612).
 
 The aggregation math runs through ``frp_tpu_torch.ops.fedavg``'s host
-numpy combine in float64, the branch the JAX service takes without a mesh.
-Its mesh branch (client updates sharded over the devices, combined with one
-psum) waits for the multi-process slice (ROADMAP, Queue 1 item 5): a
-``mesh`` other than None raises rather than compute on the host.
+numpy combine in float64 without a mesh; with a mesh of several of this
+process's positions, through ``parallel.fedavg_sharded`` (client updates in
+f32 split over the data positions, the partials added), as the JAX
+service's ``mesh_psum`` branch.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from frp_tpu_torch.ops.fedavg import (
     resolve_weights,
     validate_client_update,
 )
+from frp_tpu_torch.parallel import DATA_AXIS, fedavg_sharded, pad_clients
 from frp_tpu_torch.utils.logger import audit_event, get_logger
 
 logger = get_logger("frp.platform.federated")
@@ -51,11 +52,7 @@ class FederatedService:
         self._dir = weights_dir
         self.min_clients = min_clients
         self.history_limit = history_limit
-        if mesh is not None:
-            raise NotImplementedError(
-                "FedAvg over a device mesh is not ported yet (ROADMAP, Queue 1 "
-                "item 5, multi-process); pass mesh=None for the host combine"
-            )
+        self.mesh = mesh
         self._lock = threading.RLock()
 
         self.weights: dict[str, dict] = {}          # client/global -> {layer: np.ndarray}
@@ -250,7 +247,7 @@ class FederatedService:
                     for c in clients
                 }
                 w = resolve_weights(clients, contributions, proportional)
-                result = fedavg_combine(updates, w)
+                result = self._combine(updates, w)
 
                 version = self.state["version"] + 1
                 name = f"global_model_v{version}"
@@ -266,7 +263,7 @@ class FederatedService:
                     "proportional": proportional,
                     "timestamp": datetime.now().isoformat(),
                     "layer_count": len(result),
-                    "backend": "host",
+                    "backend": self._backend_name(len(clients)),
                 }
                 self.aggregation_history.append(entry)
                 del self.aggregation_history[: -self.history_limit]
@@ -274,6 +271,38 @@ class FederatedService:
                 return {"success": True, **entry, "global_model": name}
             finally:
                 self.state["status"] = "idle"
+
+    def _backend_name(self, k: int) -> str:
+        if self.mesh is not None and self.mesh.devices.size > 1:
+            return f"mesh_psum[{self.mesh.devices.size}]"
+        return "host"
+
+    def _combine(self, updates: dict, weights: dict) -> dict:
+        """Over this process's mesh positions when it has several; the host
+        numpy combine otherwise: the same math (tested against each
+        other)."""
+        mesh = self._local_mesh()
+        if mesh is None or mesh.devices.size <= 1:
+            return fedavg_combine(updates, weights)
+        clients = list(updates.keys())
+        names = sorted(updates[clients[0]].keys())
+        stacked = {n: np.stack([np.asarray(updates[c][n], np.float32) for c in clients])
+                   for n in names}
+        wvec = np.asarray([weights[c] for c in clients], np.float32)
+        stacked, wvec = pad_clients(stacked, wvec, mesh.shape[DATA_AXIS])
+        out = fedavg_sharded(mesh, stacked, wvec)
+        return {n: out[n].cpu().numpy().astype(np.float64) for n in names}
+
+    def _local_mesh(self):
+        """The mesh of the FL combine, this process's positions only: an
+        aggregate comes from one process's HTTP handler, and a process mesh
+        would enter a collective the other processes never join. A process
+        mesh holds one position a process, so it combines on the host; across
+        processes FL stays what the reference makes it, clients exchanging
+        weights over HTTP."""
+        if self.mesh is None or self.mesh.is_process_mesh:
+            return None
+        return self.mesh
 
     # -- rounds (federated.py:1086-1136) ---------------------------------------
     def start_round(self) -> dict:

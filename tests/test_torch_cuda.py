@@ -4,7 +4,9 @@ for bit, floats within 1e-3); the accuracy profile's embedder, embed
 compaction and pipelined serving calls against the CPU or the unpipelined
 calls; each trainer's f32 step against the CPU and the bf16 ArcFace loss
 falling; the serving default (bf16) against the CPU engine at bf16; and the
-deepfake service on the card against the CPU. The kernels have no CPU mode, so these tests are marked ``cuda`` and
+deepfake service on the card against the CPU; the engine over a mesh of the
+card against the unsharded engine, and the ArcFace step in a one-rank NCCL
+group against one process. The kernels have no CPU mode, so these tests are marked ``cuda`` and
 skip where torch.cuda.is_available() is false.
 
 The card machine has no JAX and tests/conftest.py imports it, so run them
@@ -543,3 +545,27 @@ def test_calibrate_embedder_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch)
     for key in ("metrics_e2e_raw", "metrics_e2e_calibrated", "metrics_crop_calibrated"):
         for k, v in want[key].items():
             assert abs(got[key][k] - v) <= 1e-3, (key, k, got[key][k], v)
+
+
+# --- the mesh --------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_engine_over_a_mesh_on_the_card_equals_unsharded(cuda):
+    """chip_smoke.py phase 14 (a) at 2 ticks: the default engine over a mesh
+    of the card repeated twice launches kernels 1 and 2 once a shard a
+    batch and equals the unsharded engine (bf16 by the NEAR_TIE rule; f32
+    bit for bit in valid, count and best_idx, boxes within 1e-2 px)."""
+    smoke = _smoke()
+    me = smoke.run_mesh_engine(cuda, smoke.render_scenes(smoke.FRAMES, 640, smoke.SEED), 2, 1)
+    assert me["stream_launches"] == {"detection_head": 6, "warp_crops": 6, "greedy_nms": 0}
+    assert me["bf16"]["ok"] and me["bf16"]["slots"] > 0
+    assert me["f32_faces"] > 0 and me["f32_max_abs_err"]["boxes"] <= 1e-2
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_step_equals_one_process_step(cuda):
+    """chip_smoke.py phase 14 (c): a one-rank NCCL group takes the f32
+    ArcFace step through every collective of the mesh path and equals the
+    one-process step within train_parity's bounds."""
+    errs = _smoke().run_nccl_rank(cuda)["held"]["arcface_mobilefacenet"]
+    assert errs["loss_rel"] <= 1e-4 and errs["params"] <= 1e-4

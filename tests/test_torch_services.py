@@ -685,10 +685,28 @@ def test_federated_weights_dir_warm_loads_across_packages(direction, tmp_path):
     assert other.aggregate(client_ids=["a", "b"])["version"] == 3
 
 
-def test_federated_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TFederated(weights_dir=str(tmp_path / "fl"), mesh=object())
-    assert not os.path.exists(tmp_path / "fl")
+def test_federated_takes_a_mesh(tmp_path):
+    """The FL service's mesh branch (it raised NotImplementedError before
+    the mesh was ported): over two positions, 3 clients padded to 4, the
+    JAX service's mesh_psum result on its 2-device mesh within f32."""
+    from frp_tpu.parallel.mesh import make_mesh as j_make_mesh
+
+    from frp_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(5)
+    updates = {c: {"w": rng.normal(size=(4, 3)), "b": rng.normal(size=3)} for c in "xyz"}
+    svcs = [JFederated(weights_dir=str(tmp_path / "j"), mesh=j_make_mesh(n_data=2)),
+            TFederated(weights_dir=str(tmp_path / "t"),
+                       mesh=make_mesh(n_data=2, devices=["cpu", "cpu"]))]
+    res = []
+    for svc in svcs:
+        for c, u in updates.items():
+            svc.upload_weights(c, {k: v.tolist() for k, v in u.items()})
+        res.append(svc.aggregate(client_ids=list("xyz"), proportional=True))
+    assert res[0]["backend"] == res[1]["backend"] == "mesh_psum[2]"
+    j, t = (svc.get_weights(r["global_model"]) for svc, r in zip(svcs, res))
+    for k in ("w", "b"):
+        np.testing.assert_allclose(t[k], j[k], rtol=1e-6, atol=1e-7)
 
 
 def test_fedavg_host_math_equals_jax():

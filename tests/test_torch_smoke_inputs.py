@@ -244,3 +244,4 @@ def test_imported_weights_phase_runs_on_the_cpu(smoke, monkeypatch):
     # 2 frames x 4 slots is below compaction's 64 slots: both run all 8
     assert comp["bound"]["on"]["flops"] == comp["bound"]["off"]["flops"] > 0
     assert out["batches"] == out["scan"]["batches"] + comp["batches"] + out["onnx_scan"]["batches"]
+

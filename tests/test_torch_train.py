@@ -345,14 +345,31 @@ def test_bf16_step_loss_within_one_percent_of_jax():
 
 # --- device policy and the state's API ---------------------------------------
 
-def test_trainer_means_the_card_and_refuses_a_mesh():
+def test_trainer_means_the_card_and_takes_a_mesh(runs):
+    """A mesh is taken (it raised NotImplementedError before the mesh was
+    ported): a mesh of one position is the one-card step, JAX's first step;
+    a single-process mesh of several positions raises, since torch's
+    collectives join processes (tests/test_torch_mesh_train.py runs one
+    process a position against JAX's sharded step)."""
+    from frp_tpu_torch.parallel import make_mesh
+
     assert not torch.cuda.is_available()  # this suite runs on a CPU host
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ArcFaceTrainer(num_classes=NC)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_train_state(NC)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ArcFaceTrainer(num_classes=NC, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="one process a position"):
+        ArcFaceTrainer(num_classes=NC, mesh=make_mesh(n_data=2, devices=["cpu", "cpu"]))
+    tt = ArcFaceTrainer(num_classes=NC, seed=0, learning_rate=LR, compute_dtype="float32",
+                        arch=runs["arch"], mesh=make_mesh(n_data=1, devices=["cpu"]))
+    assert tt.device == torch.device("cpu")
+    got = tt.train_step(*runs["batches"][0])
+    j = runs["j"][0]
+    assert got["step"] == 1 and got["accuracy"] == j["accuracy"]
+    np.testing.assert_allclose(got["loss"], j["loss"], rtol=1e-4)
+    _assert_params(_flat_t(tt.state["params"]),
+                   {k: np.asarray(v) for k, v in flatten_params(runs["j_state"][1]["params"]).items()},
+                   "one-position mesh")
 
 
 def test_init_train_state_leaves_and_family():

@@ -265,10 +265,26 @@ def test_detector_trainer_steps_equal_jax():
     assert tt.detector_params()["stem"]["conv"]["w"].shape == (3, 3, 3, 8)  # HWIO
 
 
-def test_trainers_mean_the_card_and_refuse_a_mesh():
+def test_trainers_mean_the_card_and_take_a_mesh():
+    """A mesh is taken (it raised NotImplementedError before the mesh was
+    ported): a mesh of one position steps as JAX's trainer does; a
+    single-process mesh of several positions raises (one process a
+    position: tests/test_torch_mesh_train.py)."""
+    from frp_tpu_torch.parallel import make_mesh
+
     assert not torch.cuda.is_available()  # this suite runs on a CPU host
-    for make in (SpoofTrainer, lambda **kw: DetectorTrainer(det_size=DET, **kw)):
+    one = make_mesh(n_data=1, devices=["cpu"])
+    cases = ((SpoofTrainer, JSpoof, {}, _spoof_batch(70)),
+             (DetectorTrainer, JDetector, {"det_size": DET}, _gt(80, b=4)))
+    for make, jmake, kw, batch in cases:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            make()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            make(mesh=object(), device="cpu")
+            make(**kw)
+        with pytest.raises(ValueError, match="one process a position"):
+            make(mesh=make_mesh(n_data=2, devices=["cpu", "cpu"]), **kw)
+        tt = make(mesh=one, seed=0, learning_rate=LR, compute_dtype="float32", **kw)
+        jt = jmake(seed=0, learning_rate=LR, compute_dtype="float32", **kw)
+        t, j = tt.train_step(*batch), jt.train_step(*batch)
+        assert t.keys() == j.keys() and t["step"] == j["step"] == 1
+        for k in j:
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-4, err_msg=k)
+        _compare(jax.device_get(jt.state), tt, "one-position mesh")
