@@ -51,7 +51,7 @@ Phases, each printed on its own lines, in order:
             count and best_idx bit for bit, embeddings and fake_prob within
             2e-2; the embed stage's device ms with compaction on and off (two
             short streams each, in turns), beside its bound (the stage's
-            matmul and conv FLOPs, as torch's FlopCounterMode counts them,
+            matmul and conv FLOPs, as utils/flops.py counts them,
             over the bf16 peak), and the device-busy ms a batch of a third
             stream each from a torch.profiler trace. The same for the default
             profile on phase 4's engine. Last, phase 6's parity for this
@@ -122,7 +122,7 @@ Phases, each printed on its own lines, in order:
             the detector trainer (det 320, batch 16, make_batch "mix"). Each
             prints its step ms (median after 3 warm steps, CUDA events and
             the synchronized host clock), images/s, FLOPs a step
-            (FlopCounterMode, forward and backward), its bound (the larger of
+            (utils/flops.py, forward and backward), its bound (the larger of
             the FLOPs over 989 TFLOP/s bf16 and the bytes over 3.35 TB/s) and
             its share of it, the device-busy ms and idle share from a
             torch.profiler trace, and the peak memory. Then one step of each
@@ -173,8 +173,33 @@ Phases, each printed on its own lines, in order:
             mesh of (a) aggregates two clients: backend mesh_psum[2], the
             f32 mean bit for bit.
 
+15. host     (a) the port's host library: g++ builds csrc/framepack.cpp at
+            its first use (the path is printed); on 8 frames of 1920x1080
+            it is held bit for bit against its numpy versions (the letterbox
+            packer, the delta block search, count and fill, and the band
+            detector with its updated previous frame), ms of each printed.
+            (b) the scan over cameras without change hints: AppContext with
+            the default config and 8 PushSource 1920x1080 cameras fed 16
+            ticks of phase 10's motion rendered first (camera 3 static,
+            camera 5 cut to another scene at tick 8), a run_scan a tick:
+            every batch rebuilt from the payloads equals build_batch_i420 of
+            its frames, faces found and camera 0's enrolled face matched
+            every scan, deltas without a desync, kernels 1 and 2 once a scan,
+            the static slot's delta hint [] and the others' block ranges;
+            the letterbox ms a scan (the change detector and the banded
+            letterbox) against build_batch_i420 on the same frames, payload
+            bytes and scans/s. Then a synthetic camera that a probe reads
+            between scans, its hints and the detector mixed: every cached
+            batch equals a full letterbox. (c) build_pipeline with spoof
+            off, quality off and 224 px spoof crops, and the engine with
+            spoof off, at f32 (TF32 off) on cuda and on the CPU over phase
+            6's frames (phase 6's check; the outputs switched off absent).
+            (d) engine_stage_flops of phase 4's and phase 8's engines at the
+            faces a batch those phases found, and the MFU over phase 8's
+            device-busy ms and over each phase's ms/batch.
+
 Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9,
-10, 11, 12, 13 and 14 and read just after. Any failed check raises, so the run exits
+10, 11, 12, 13, 14 and 15 (b) and (c) and read just after. Any failed check raises, so the run exits
 non-zero. The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
@@ -198,7 +223,6 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.flop_counter import FlopCounterMode
 
 from frp_tpu_torch.api.http import HTTPServer
 from frp_tpu_torch.api.main import build_app
@@ -217,11 +241,11 @@ from frp_tpu_torch.platform.context import AppContext
 from frp_tpu_torch.platform.state import SyntheticSource
 from frp_tpu_torch.testing.payloads import crowd_payload
 from frp_tpu_torch.testing.synthetic import make_scene, write_face_clip
+from frp_tpu_torch.utils.flops import PEAK_FLOPS_BF16, counted_flops, engine_stage_flops, mfu
 
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12  # bfloat16 on the tensor cores
 
 PROFILE = dict(det_size=640, max_faces_per_frame=16, pre_nms_topk=256,
                compute_dtype="bfloat16", embedder_arch="mobilefacenet",
@@ -747,16 +771,15 @@ def embed_bound(eng: RecognitionEngine, frames_yuv: np.ndarray, compact: bool) -
         rgb = eng._stages["ingest"](eng._upload(frames_yuv))
         dets = eng._stages["detect"](eng.params["detector"], rgb, eng._priors)
         crops = eng._stages["crop"](rgb, dets)["crops"]
-        with FlopCounterMode(display=False) as counter:
-            eng._stages["embed"](eng.params, crops, dets["valid"], eng.distance_scale)
-    flops = float(counter.get_total_flops())
+        flops = counted_flops(eng._stages["embed"], eng.params, crops, dets["valid"],
+                              eng.distance_scale)
     nv = int(dets["valid"].sum())
     n = dets["valid"].numel()
     rung = next((k for k in embed_compact_rungs(n) if nv <= k), n) if compact else n
     width = torch.finfo(getattr(torch, eng.cfg.compute_dtype)).bits // 8
     nbytes = rung * 112 * 112 * 3 * 4 + width * (
         param_count(eng.params["embedder"]) + param_count(eng.params["spoof"]))
-    tb, to = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS_BF16
     return dict(flops=flops, bytes=nbytes, faces=nv, slots=n, rung=rung,
                 bound_ms=max(tb, to) * 1e3, bound_by="bytes" if tb >= to else "operations")
 
@@ -963,15 +986,17 @@ PLATFORM_REQUESTS = 20
 ENROLLED = "camera0_person"
 
 
-def platform_app(dev, data_dir: str, **overrides):
+def platform_app(dev, data_dir: str, source: str | None = None, **overrides):
     """The port's app as its entry point builds it, from the default config
-    (or `overrides` of it) with a data dir of its own and the 8 synthetic
-    1080p cameras. The engine keeps the bytes of every payload it is sent
-    and every result it returns: the dict of lists ("payload_bytes", "out")
-    that comes back with (router, sio, ctx)."""
+    (or `overrides` of it) with a data dir of its own and 8 cameras of
+    `source` (synthetic PLATFORM_SOURCE frames when None). The engine keeps
+    the bytes of every payload it is sent and every result it returns: the
+    dict of lists ("payload_bytes", "out") that comes back with (router,
+    sio, ctx)."""
+    source = source or "synthetic:%dx%d" % PLATFORM_SOURCE
     cfg = load_config(data_dir=data_dir, log_dir=os.path.join(data_dir, "logs"), **overrides)
     cams = [{"id": i, "name": f"Camera {i}", "geo": (18.52 + 0.01 * i, 73.85),
-             "source": "synthetic:%dx%d" % PLATFORM_SOURCE} for i in range(PLATFORM_CAMERAS)]
+             "source": source} for i in range(PLATFORM_CAMERAS)]
     router, sio, ctx = build_app(AppContext(cfg=cfg, camera_configs=cams, device=dev))
     seen: dict = {"payload_bytes": [], "out": []}
     submit, fetch = ctx.engine.submit_encoded, ctx.engine.fetch
@@ -1771,12 +1796,10 @@ def step_work(step, n_params: int, in_bytes: int, opt_buffers: int) -> dict:
     parameter, gradient and optimizer buffers read and parameter and buffers
     written by the update), and the bound: the larger of the FLOPs over the
     bf16 peak and the bytes over the memory rate."""
-    with FlopCounterMode(display=False) as fc:
-        step()
+    flops = counted_flops(step)
     torch.cuda.synchronize()
-    flops = float(fc.get_total_flops())
     nbytes = in_bytes + 4 * n_params * (1 + 1 + (2 + opt_buffers) + (1 + opt_buffers))
-    tb, to = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS_BF16
     return dict(flops=flops, bytes=nbytes, bound_ms=max(tb, to) * 1e3,
                 bound_by="bytes" if tb >= to else "operations")
 
@@ -2544,6 +2567,364 @@ def run_mesh_fl(dev) -> dict:
     return dict(backend=res["backend"], layers=res["layer_count"], rel=rel)
 
 
+# --- phase 15: the host ---------------------------------------------------------
+
+HOST_TICKS = 16
+STATIC_CAMERA, CUT_CAMERA, CUT_TICK = 3, 5, 8
+BAND = 16  # SourceChangeDetector's rows a band
+SWITCHES = [(False, True, 112), (True, False, 112), (True, True, 224)]  # spoof, quality, size
+
+
+def render_hintless(ticks: int = HOST_TICKS) -> list[dict]:
+    """Each tick's BGR frames {camera: frame} of PLATFORM_CAMERAS synthetic
+    1080p sources (phase 10's motion, camera c from seed c), rendered before
+    any timing: camera STATIC_CAMERA repeats its first frame, and camera
+    CUT_CAMERA cuts to another scene (seed 100 + CUT_CAMERA) at CUT_TICK."""
+    srcs = {c: SyntheticSource(*PLATFORM_SOURCE, seed=c) for c in range(PLATFORM_CAMERAS)}
+    cut = SyntheticSource(*PLATFORM_SOURCE, seed=100 + CUT_CAMERA)
+    out: list[dict] = []
+    for t in range(ticks):
+        frames = {}
+        for c, src in srcs.items():
+            if c == STATIC_CAMERA and t:
+                frames[c] = out[0][c]
+            elif c == CUT_CAMERA and t >= CUT_TICK:
+                frames[c] = cut.read()[1]
+            else:
+                frames[c] = src.read()[1]
+        out.append(frames)
+    return out
+
+
+def band_diff(cur: np.ndarray, prev: np.ndarray, band: int = BAND) -> list:
+    """numpy: the merged half-open (y0, y1) row bands of `band` rows in
+    which two frames differ (what the native dirty_bands reports)."""
+    h = cur.shape[0]
+    rows = np.zeros(-(-h // band) * band, bool)
+    rows[:h] = (cur != prev).reshape(h, -1).any(axis=1)
+    out: list = []
+    for i in np.flatnonzero(rows.reshape(-1, band).any(axis=1)):
+        y0, y1 = int(i) * band, min(h, (int(i) + 1) * band)
+        if out and out[-1][1] == y0:
+            out[-1] = (out[-1][0], y1)
+        else:
+            out.append((y0, y1))
+    return out
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of `reps` calls of fn()."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def run_framepack(ticks: list) -> dict:
+    """Phase 15 (a): the port's host library, built by g++ from
+    csrc/framepack.cpp, against its numpy versions on the card's host, bit
+    for bit, over ticks 0 and 1 of the hintless cameras: the letterbox
+    packer, the delta block search (count and fill) and the band detector
+    (bands, and the previous frame after its update)."""
+    from frp_tpu_torch.utils import native
+
+    if native.get_framepack() is None:
+        raise AssertionError("the framepack library did not build from csrc/framepack.cpp")
+    path = native.library_path()
+    if path != cuda_build.host_library_path("framepack") or not os.path.exists(path):
+        raise AssertionError(f"framepack loaded from {path}")
+    size = PROFILE["det_size"]
+    prev_frames, frames = list(ticks[0].values()), list(ticks[1].values())
+    rows = batching.active_rows_for([f.shape[:2] for f in frames], size)
+    got = native.letterbox_i420_batch(frames, size, rows=rows)
+    for k, f in enumerate(frames):
+        img, sc, off = batching.letterbox_i420(f, size, rows)
+        if not (np.array_equal(got[0][k], img) and got[1][k] == np.float32(sc)
+                and tuple(got[2][k]) == tuple(off)):
+            raise AssertionError(f"letterbox_i420_batch differs from letterbox_i420 on frame {k}")
+    ms = {"letterbox": (host_ms(lambda: native.letterbox_i420_batch(frames, size, rows=rows), 5),
+                        host_ms(lambda: [batching.letterbox_i420(f, size, rows) for f in frames], 2))}
+
+    block = int(os.getenv("FRP_DELTA_BLOCK", "128"))  # the scan's block size
+    cur, prev = (batching.build_batch_i420(dict(enumerate(fs)), size, active_rows=rows)[0]
+                 .reshape(len(fs), -1) for fs in (frames, prev_frames))
+    nblocks = cur.shape[1] // block
+    count = native.delta_blocks(cur, prev, block, 0)
+    cap = next(nblocks // d for d in DeltaEncoder.LADDER if count <= nblocks // d)
+    out = {}
+    for name, search in (("native", native.delta_blocks), ("numpy", batching.changed_blocks)):
+        idx = np.full((len(frames), cap), -1, np.int32)
+        blocks = np.zeros((len(frames), cap, block), np.uint8)
+        out[name] = (search(cur, prev, block, 0), search(cur, prev, block, cap, idx, blocks),
+                     idx, blocks)
+    (c0, c1, idx, blocks), (n0, n1, want_idx, want_blocks) = out["native"], out["numpy"]
+    if not (count == c0 == c1 == n0 == n1 and np.array_equal(idx, want_idx)
+            and np.array_equal(blocks, want_blocks)):
+        raise AssertionError(f"delta_blocks differs from the numpy search (counts {c0}, {c1}, "
+                             f"numpy {n0}, {n1})")
+    ms["delta_blocks"] = (
+        host_ms(lambda: native.delta_blocks(cur, prev, block, cap, idx, blocks), 5),
+        host_ms(lambda: batching.changed_blocks(cur, prev, block, cap, want_idx, want_blocks), 2))
+
+    bands = []
+    for f, p in zip(frames, prev_frames):
+        copy = p.copy()
+        got_bands = native.dirty_bands(f, copy, BAND)
+        if got_bands != band_diff(f, p) or not np.array_equal(copy, f):
+            raise AssertionError(f"dirty_bands {got_bands} against the numpy diff {band_diff(f, p)}")
+        bands.append(sum(y1 - y0 for y0, y1 in got_bands))
+    copies = [[p.copy() for p in prev_frames] for _ in range(5)]
+    native_ms = []
+    for cp in copies:  # a fresh previous frame a pass: the update writes into it
+        t = time.perf_counter()
+        for f, p in zip(frames, cp):
+            native.dirty_bands(f, p, BAND)
+        native_ms.append((time.perf_counter() - t) * 1e3)
+    ms["dirty_bands"] = (float(np.median(native_ms)),
+                         host_ms(lambda: [band_diff(f, p) for f, p in zip(frames, prev_frames)], 2))
+    return dict(path=path, frames=len(frames), rows=rows, block=block, count=count, cap=cap,
+                dirty_rows=bands, ms=ms)
+
+
+def run_mixed_hints(size: int, scans: int = 12) -> dict:
+    """Phase 15 (b), last part: a synthetic 1080p camera whose scan takes
+    read_with_hints while a probe reads it before scans 1, 2, 7 and 8 (its
+    hints are then None and the change detector steps in), every other scan
+    taking the source's own hints. Each scan's cached batch must equal a
+    full letterbox of the frame it read: a detector whose previous copy
+    lagged the slot would leave the face's old pixels in it."""
+    from frp_tpu_torch.platform.state import Camera
+
+    cam = Camera(0, "probe", source="synthetic:%dx%d" % PLATFORM_SOURCE)
+    state, kinds = {}, []
+    for k in range(scans):
+        if k in (1, 2, 7, 8):
+            cam.read()  # a health probe or snapshot between two scans
+        ok, frame, hints = cam.read_with_hints()
+        rows = batching.active_rows_for([frame.shape[:2]], size)
+        got, _ = batching.build_batch_i420_cached({0: frame}, size, state, hints={0: hints},
+                                                   active_rows=rows)
+        want, _ = batching.build_batch_i420({0: frame}, size, active_rows=rows)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"mixed hints: scan {k}'s cached batch differs from a full letterbox")
+        kinds.append("source" if hints is not None else
+                     "detector" if 0 in state.get("detectors", {}) else "full")
+    if kinds[3:7] != ["source"] * 4 or "detector" not in kinds[7:9]:
+        raise AssertionError(f"mixed hints: the scans took {kinds}")
+    return dict(scans=scans, kinds=kinds)
+
+
+def run_hintless(dev, ticks: list, **overrides) -> dict:
+    """Phase 15 (b): the scan as a user runs it over cameras without change
+    hints. AppContext from the default config (`overrides` only for a
+    rehearsal on the CPU) with 8 PushSource cameras; the ticks' frames are
+    pushed, then one run_scan each. Every scan's batch, rebuilt on the host
+    from the payloads sent (DeltaEncoder.apply_host), must equal
+    build_batch_i420 of its frames; faces are found and camera 0's enrolled
+    face matches every scan; kernels 1 and 2 once a scan; from the second
+    timed scan on, the static camera's delta hint is [] and every other
+    slot's a list of block ranges (the change detector's bands)."""
+    from frp_tpu_torch.api.routes import camera as camera_routes
+
+    tmp = tempfile.mkdtemp(prefix="frp_hintless_")
+    router, sio, ctx, seen = platform_app(dev, os.path.join(tmp, "data"), source="push", **overrides)
+    cfg = ctx.cfg
+    size = cfg.det_size
+    rows = batching.active_rows_for([f.shape[:2] for f in ticks[0].values()], size)
+    timed = dev.type == "cuda"
+    sent, slot_hints, build_ms = [], [], []
+    submit, delta_hints_for = ctx.engine.submit_encoded, camera_routes.delta_hints_for
+    build_cached = camera_routes.build_batch_i420_cached
+
+    def recording_submit(enc, *args, **kwargs):
+        sent.append((enc[0], *(np.array(a, copy=True) for a in enc[1:])))
+        return submit(enc, *args, **kwargs)
+
+    def recording_hints(state, block):
+        hints = delta_hints_for(state, block)
+        slot_hints.append(hints)
+        return hints
+
+    def timed_build(*args, **kwargs):
+        t = time.perf_counter()
+        out = build_cached(*args, **kwargs)
+        build_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def push(frames):
+        for c, f in frames.items():
+            ctx.cameras.get(c).source.push(f)
+
+    ctx.engine.submit_encoded = recording_submit
+    camera_routes.delta_hints_for = recording_hints
+    camera_routes.build_batch_i420_cached = timed_build
+    try:
+        push(ticks[0])
+        ctx.run_scan(cfg.face_tolerance, cfg.frame_skip, 10, True)
+        enrol(ctx, ticks[0][0])
+        seen["out"].clear()
+        reset_launches()
+        scans = []
+        for t, frames in enumerate(ticks):
+            if t == 1:  # tick 0 is the change detector's first sight: full letterboxes
+                ctx.timers.reset()
+                seen["payload_bytes"].clear()
+                if timed:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            push(frames)
+            scans.append(ctx.run_scan(cfg.face_tolerance, 1, cfg.max_faces_per_frame))
+        seconds = time.perf_counter() - t0
+        got = launches()
+        resident = ctx.engine._delta_prev.cpu().numpy()
+    finally:
+        camera_routes.delta_hints_for = delta_hints_for
+        camera_routes.build_batch_i420_cached = build_cached
+        ctx.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    if len(sent) != len(ticks) + 1 or len(slot_hints) != len(ticks) + 1:
+        raise AssertionError(f"{len(sent)} payloads and {len(slot_hints)} hints for "
+                             f"{len(ticks) + 1} scans")
+    host = None
+    full_ms = []
+    for k, (payload, frames) in enumerate(zip(sent, [ticks[0], *ticks])):
+        host = (payload[1].reshape(len(frames), -1).copy() if payload[0] == "raw"
+                else DeltaEncoder.apply_host(host, payload[1], payload[2]))
+        t = time.perf_counter()
+        want, _ = batching.build_batch_i420(frames, size, active_rows=rows)
+        full_ms.append((time.perf_counter() - t) * 1e3)
+        if not np.array_equal(host, want.reshape(len(frames), -1)):
+            raise AssertionError(f"scan {k}: the batch rebuilt from the payloads differs from "
+                                 "build_batch_i420 of its frames")
+    if not np.array_equal(resident.reshape(host.shape), host):
+        raise AssertionError("the engine's resident batch differs from the payloads' rebuild")
+    tol = cfg.face_tolerance
+    camera0 = []
+    for k, (scan, out) in enumerate(zip(scans, seen["out"])):
+        hits = [d["distance"] for d in scan["detections"]
+                if d["target"] == ENROLLED and d["camera_id"] == 0 and d["distance"] <= tol]
+        if int(out["count"].sum()) == 0 or not hits:
+            raise AssertionError(f"hintless scan {k}: {int(out['count'].sum())} faces, camera 0 "
+                                 f"hits {hits}")
+        camera0.append(min(hits))
+    delta = dict(ctx.engine.delta_stats)
+    if delta["deltas"] == 0 or delta["desyncs"] != 0:
+        raise AssertionError(f"delta_stats {delta}")
+    want_launches = {"detection_head": len(ticks), "warp_crops": len(ticks), "greedy_nms": 0}
+    if timed and got != want_launches:
+        raise AssertionError(f"hintless launches {got}, expected {want_launches}")
+    # slot_hints[0] is the dry scan's, [1] tick 0's (the detectors' first sight)
+    if any(h is not None for h in slot_hints[1]):
+        raise AssertionError(f"tick 0's delta hints {slot_hints[1]}: expected full letterboxes")
+    for t, hints in enumerate(slot_hints[2:], start=1):
+        for c, h in enumerate(hints):
+            if c == STATIC_CAMERA:
+                if h != []:
+                    raise AssertionError(f"tick {t}: the static camera's delta hint is {h}")
+            elif not (isinstance(h, list) and h and all(len(r) == 2 for r in h)):
+                raise AssertionError(f"tick {t}: camera {c}'s delta hint is {h}")
+    stages = ctx.timers.summary()
+    steady = len(ticks) - 1
+    return dict(
+        launches=got, scans=len(ticks), delta=delta, camera0_distance=(min(camera0), max(camera0)),
+        faces_per_scan=float(np.mean([int(o["count"].sum()) for o in seen["out"]])),
+        letterbox_ms=stages["scan.letterbox"]["mean_ms"],
+        parts_ms={k.split(".", 1)[1]: v["mean_ms"] for k, v in stages.items() if k.startswith("scan.")},
+        cached_ms=(float(np.median(build_ms[2:])), float(np.mean(build_ms[2:]))),
+        full_ms=(float(np.median(full_ms[2:])), float(np.mean(full_ms[2:]))),
+        payload_kb=float(np.median(seen["payload_bytes"])) / 1024,
+        payload_kb_max=max(seen["payload_bytes"]) / 1024, scans_per_s=steady / seconds,
+        cut_blocks=sum(b1 - b0 for b0, b1 in slot_hints[CUT_TICK + 1][CUT_CAMERA]),
+        mixed=run_mixed_hints(size),
+    )
+
+
+def run_switches(dev, scenes: np.ndarray, **overrides) -> dict:
+    """Phase 15 (c): build_pipeline with each of SWITCHES (spoof, quality,
+    spoof size) and RecognitionEngine(with_spoof=False), at f32 (TF32 off)
+    on `dev` and on the CPU over phase 6's frames, held to phase 6's
+    tolerances (valid, count and best_idx bit for bit, boxes within
+    1e-2 px); the outputs switched off are absent (the packed fake_prob
+    column zeros, encode_image's fake_prob None)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(**{**PROFILE, "compute_dtype": "float32", **overrides})
+    engs = [RecognitionEngine(cfg, device=d, with_spoof=False) for d in (dev, "cpu")]
+    ref = engs[1].process_frames(scenes)
+    if not ref["valid"].any():
+        raise AssertionError("the CPU engine found no face in the switch frames")
+    embs = ref["embeddings"][ref["valid"]]
+    embs = embs * np.linspace(1.0, 0.8, len(embs), dtype=np.float32)[:, None]
+    for eng in engs:
+        for n, e in enumerate(embs):
+            eng.gallery.add(f"id{n}", e)
+    timed = dev.type == "cuda"
+    reset_launches()
+    held: dict = {}
+
+    def hold(name, got, want, absent):
+        for key in ("valid", "count", "best_idx"):
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"{name}: cuda and cpu differ in {key}")
+        for out in (got, want):
+            if absent & set(out):
+                raise AssertionError(f"{name}: {sorted(absent & set(out))} present")
+        v = want["valid"]
+        errs = {key: float(np.abs(got[key][v] - want[key][v]).max())
+                for key in ("boxes", "best_distance", "fake_prob", "quality") if key in want}
+        if not errs["boxes"] <= 1e-2:
+            raise AssertionError(f"{name}: cuda and cpu boxes differ by {errs['boxes']} px")
+        held[name] = dict(faces=int(v.sum()), max_abs_err=errs)
+
+    for spoof, quality, spoof_size in SWITCHES:
+        outs = []
+        for eng in engs:
+            pipe = build_pipeline(
+                device=eng.device, det_size=cfg.det_size, max_faces=cfg.max_faces_per_frame,
+                pre_nms_topk=cfg.pre_nms_topk, conf_thresh=cfg.det_conf_threshold,
+                nms_thresh=cfg.det_nms_threshold, iom_thresh=cfg.det_nms_iom_threshold,
+                tolerance=cfg.face_tolerance, with_spoof=spoof, with_quality=quality,
+                compute_dtype=cfg.compute_dtype, spoof_size=spoof_size,
+                distance_scale=eng.distance_scale)
+            gal, gal_valid, _ = eng.gallery.device_view()
+            out = pipe(eng.params, torch.from_numpy(scenes).to(eng.device), gal, gal_valid, eng._priors)
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
+        absent = (set() if spoof else {"fake_prob"}) | (set() if quality else {"quality", "blur_score"})
+        hold(f"build_pipeline spoof={spoof} quality={quality} spoof_size={spoof_size}", *outs, absent)
+    res = [eng.fetch(eng.submit_encoded(DeltaEncoder(block_bytes=128).encode(tick_batch(scenes, 0))))
+           for eng in engs]
+    if any(np.any(r["fake_prob"] != 0) for r in res):
+        raise AssertionError("with_spoof=False: the packed fake_prob column is not zeros")
+    hold("RecognitionEngine with_spoof=False", *res, set())
+    faces = [eng.encode_image(scenes[int(np.flatnonzero(ref["valid"].any(axis=1))[0])]) for eng in engs]
+    if not faces[0] or len(faces[0]) != len(faces[1]) or any(f["fake_prob"] is not None
+                                                             for fs in faces for f in fs):
+        raise AssertionError(f"with_spoof=False encode_image: {len(faces[0])} and {len(faces[1])} "
+                             "faces, fake_prob must be None")
+    got = launches()
+    n = len(SWITCHES)
+    want = {"detection_head": 2, "warp_crops": n + 2, "greedy_nms": n}
+    if timed and got != want:
+        raise AssertionError(f"switch launches {got}, expected {want}")
+    return dict(launches=got, held=held)
+
+
+def run_stage_flops(engines: dict) -> dict:
+    """Phase 15 (d): engine_stage_flops for each (engine, occupancy, busy
+    ms, ms/batch) of `engines`, at FRAMES frames a batch, and the MFU over
+    the device-busy time and over the ms a batch."""
+    out = {}
+    for name, (eng, occupancy, busy, ms) in engines.items():
+        fl = engine_stage_flops(eng, FRAMES, occupancy=occupancy)
+        out[name] = dict(flops=fl, occupancy=occupancy, busy_ms=busy, ms_per_batch=ms,
+                         mfu_busy=None if busy is None else mfu(fl["total"], busy / 1e3),
+                         mfu_wall=mfu(fl["total"], ms / 1e3))
+    return out
+
+
 def gpu_name_and_limit() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2884,8 +3265,68 @@ def main() -> int:
         f"the f32 mean bit for bit, {fl['rel']:.3g} from the numpy mean; phase 14 took "
         f"{time.perf_counter() - t_mesh:.1f} s on {smi}")
 
+    t_host = time.perf_counter()
+    ticks = render_hintless()
+    render_s = time.perf_counter() - t_host
+    fp = run_framepack(ticks)
+    say("host", f"(a) framepack built by g++ from frp_tpu_torch/csrc/framepack.cpp into "
+        f"{fp['path']}; {fp['frames']} frames of {PLATFORM_SOURCE[0]}x{PLATFORM_SOURCE[1]} "
+        f"(ticks 0 and 1), det {PROFILE['det_size']}, {fp['rows']} active rows: "
+        "letterbox_i420_batch equals letterbox_i420, delta_blocks the numpy search (count "
+        f"{fp['count']}, fill at cap {fp['cap']} of {fp['block']}-byte blocks), dirty_bands the "
+        f"numpy band diff (changed rows a frame {fp['dirty_rows']}) and its updated previous "
+        "frame the current one, bit for bit")
+    say("host", "(a) host ms for the 8 frames, native against numpy: "
+        + ", ".join(f"{k} {a:.2f} against {b:.2f}" for k, (a, b) in fp["ms"].items())
+        + f"; on {smi}")
+    hl = run_hintless(dev, ticks)
+    say("host", f"(b) AppContext, default config, {PLATFORM_CAMERAS} PushSource cameras "
+        f"{PLATFORM_SOURCE[0]}x{PLATFORM_SOURCE[1]} without change hints, {hl['scans']} ticks "
+        f"rendered first ({render_s:.1f} s; camera {STATIC_CAMERA} static, camera {CUT_CAMERA} "
+        f"cut at tick {CUT_TICK}), pushed then run_scan: launches {hl['launches']}; every scan's "
+        "batch rebuilt from its payloads equals build_batch_i420 of its frames and the resident "
+        f"batch; faces a scan {hl['faces_per_scan']:.2f}, camera 0's enrolled face matched at "
+        f"{hl['camera0_distance'][0]:.4f}-{hl['camera0_distance'][1]:.4f}; delta_stats "
+        f"{hl['delta']}; the static slot's delta hint [] and every other slot's block ranges "
+        f"from tick 1 on ({hl['cut_blocks']} blocks at the cut)")
+    say("host", f"(b) over ticks 1-{hl['scans'] - 1}: letterbox {hl['letterbox_ms']:.2f} ms a scan "
+        f"(the scan's timer, mean), of which build_batch_i420_cached (the change detector and "
+        f"the banded letterbox) median {hl['cached_ms'][0]:.2f}, mean {hl['cached_ms'][1]:.2f}, "
+        f"against build_batch_i420 of the same frames median {hl['full_ms'][0]:.2f}, mean "
+        f"{hl['full_ms'][1]:.2f}; scan parts (mean ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in hl["parts_ms"].items())
+        + f"; payload {hl['payload_kb']:.1f} KiB a scan (median, largest {hl['payload_kb_max']:.1f}); "
+        f"{hl['scans_per_s']:.2f} scans/s; on {smi}")
+    mx = hl["mixed"]
+    say("host", f"(b) mixed hints, a synthetic camera read by a probe before scans 1, 2, 7 and 8: "
+        f"{mx['scans']} scans ({', '.join(mx['kinds'])}), each cached batch equal to a full "
+        "letterbox (no ghost)")
+    sw = run_switches(dev, scenes[:2])
+    for name, h in sw["held"].items():
+        say("host", f"(c) {name}, f32, TF32 off, {h['faces']} faces: valid, count, best_idx equal "
+            "on cuda and cpu, the outputs switched off absent; max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in h["max_abs_err"].items()))
+    say("host", f"(c) launches {sw['launches']} (build_pipeline: greedy_nms and warp_crops once a "
+        "call; the engine: detection_head and warp_crops once a batch)")
+    sf = run_stage_flops({
+        "default": (scan["engine"], round(scan["faces_per_batch"]),
+                    acc["default_compaction"]["busy_ms"]["on"], scan["ms_per_batch"]),
+        "accuracy": (acc["engine"], round(acc["faces_per_batch"]),
+                     acc["compaction"]["busy_ms"]["on"], acc["ms_per_batch"]),
+    })
+    for name, f in sf.items():
+        say("host", f"(d) {name} profile, {FRAMES} frames a batch, {f['occupancy']} faces (phase "
+            f"{4 if name == 'default' else 8}'s): engine_stage_flops GFLOP "
+            + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in f["flops"].items())
+            + f" (FlopCounterMode; embed at the rung of {f['occupancy']} faces); MFU at bf16 "
+            f"{PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s: over device-busy "
+            + ("not measured" if f["mfu_busy"] is None else
+               f"{f['busy_ms']:.3f} ms {100 * f['mfu_busy']:.3f} %")
+            + f", over {f['ms_per_batch']:.2f} ms/batch {100 * f['mfu_wall']:.3f} %; on {smi}")
+    say("host", f"phase 15 took {time.perf_counter() - t_host:.1f} s")
+
     counts = {name: sum(ph["launches"][name]
-                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me))
+                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me, hl, sw))
               for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():

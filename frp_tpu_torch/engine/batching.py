@@ -4,10 +4,14 @@ the batch builders and their change-hint caches, the mapping of results back
 to cameras, and the block-sparse temporal delta encoder.
 
 Letterboxing uses cv2 where it is installed and a numpy nearest resize where
-it is not, exactly as the JAX package does. Where the JAX package falls back
-to its native library (``native/framepack.cpp``: the I420 packer without
-cv2, the changed-band and changed-block searches), the port runs numpy
-copies of the same arithmetic, which give the same bytes.
+it is not, exactly as the JAX package does. The port's host library
+(``csrc/framepack.cpp`` through ``utils/native.py``, built with g++ at first
+use) takes the paths the JAX package's native library takes: the I420 packer
+without cv2, the changed-block search of the delta encoder, and the
+changed-band detector for cameras without change hints. Where the library
+cannot be built, the packer and the block search run their numpy copies
+(``letterbox_i420``, ``changed_blocks``), which give the
+same bytes, and the detector is off, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from frp_tpu_torch.utils.native import delta_blocks, dirty_bands, letterbox_i420_batch
+
 try:
     import cv2
-except ImportError:  # the card machine has no cv2
+except ImportError:  # pragma: no cover - cv2 is installed where the port runs
     cv2 = None
 
 
@@ -155,11 +161,12 @@ def build_batch(
 def letterbox_i420(frame: np.ndarray, size: int, rows: int):
     """One BGR frame -> ([rows*3/2, size] I420 uint8, scale, (ox, oy) in
     full-square coordinates): the letterbox and the BT.601 conversion in one
-    pass, a numpy copy of ``native/framepack.cpp``'s ``pack_one`` (the JAX
-    package's packer where cv2 is missing), float32 arithmetic in the same
-    order, so the same bytes. Bilinear samples at the destination pixel
-    centres (x and y separable), studio-swing Y at every pixel, and U and V
-    taken at the even rows and columns of the full square, not averaged."""
+    pass, a numpy copy of ``csrc/framepack.cpp``'s ``pack_one`` (the packer
+    where cv2 is missing and the library did not build), float32 arithmetic
+    in the same order, so the same bytes. Bilinear samples at the
+    destination pixel centres (x and y separable), studio-swing Y at every
+    pixel, and U and V taken at the even rows and columns of the full
+    square, not averaged."""
     f32 = np.float32
     h, w = frame.shape[:2]
     s = min(f32(size) / f32(w), f32(rows) / f32(h))
@@ -219,7 +226,8 @@ def build_batch_i420(
     coordinates so decode/unmap are unchanged.
 
     Path selection: cv2 (letterbox + cvtColor) where it is installed, else
-    ``letterbox_i420`` (the JAX package's native packer, in numpy). Device
+    the native packer (``utils/native.py::letterbox_i420_batch``), else its
+    numpy copy ``letterbox_i420``; the last two give the same bytes. Device
     side decodes with ops.image.yuv420_to_rgb (engine fmt="yuv420").
     """
     cam_ids = list(frames.keys())
@@ -237,19 +245,29 @@ def build_batch_i420(
         frame_ok=np.zeros((b,), bool),
         orig_hw=[None] * b,
     )
-    for i, c in enumerate(cam_ids[:b]):
-        frame = frames[c]
-        if frame is None or getattr(frame, "size", 0) == 0:
-            continue
-        if cv2 is not None:
+    live = [
+        (i, frames[c])
+        for i, c in enumerate(cam_ids[:b])
+        if frames[c] is not None and getattr(frames[c], "size", 0) > 0
+    ]
+    if not live:
+        return batch, meta
+    if cv2 is not None:
+        packed = []
+        for _, frame in live:
             boxed, s, (ox, oy) = letterbox(frame, size, rows=rows)
-            batch[i] = cv2.cvtColor(boxed, cv2.COLOR_BGR2YUV_I420)
-            oy += oy_pad
+            packed.append((cv2.cvtColor(boxed, cv2.COLOR_BGR2YUV_I420), s, (ox, oy + oy_pad)))
+    else:
+        native = letterbox_i420_batch([f for _, f in live], size, rows=rows)
+        if native is not None:
+            packed = list(zip(*native))
         else:
-            batch[i], s, (ox, oy) = letterbox_i420(
-                np.ascontiguousarray(frame, dtype=np.uint8), size, rows)
+            packed = [letterbox_i420(np.ascontiguousarray(f, dtype=np.uint8), size, rows)
+                      for _, f in live]
+    for (i, frame), (img, s, off) in zip(live, packed):
+        batch[i] = img
         meta.scales[i] = s
-        meta.offsets[i] = (ox, oy)
+        meta.offsets[i] = off
         meta.frame_ok[i] = True
         meta.orig_hw[i] = frame.shape[:2]
     return batch, meta
@@ -488,20 +506,31 @@ class LetterboxCache:
 
 
 class SourceChangeDetector:
-    """Change hints for sources that can't provide them. The JAX package's
-    detector diffs the raw frame against its previous copy with a native
-    memcmp kernel and turns itself off when that library is missing. The
-    port has no native library, and a numpy diff (a full-frame temporary a
-    camera a scan) is not known to cost less than the letterbox it would
-    save, so the detector is always off: ``hints`` returns None and
-    build_batch_i420_cached letterboxes a hintless camera's whole frame, as
-    the JAX package does without its library."""
+    """Change hints for sources that can't provide them: diffs the raw
+    source frame against the previous one in row bands of ``band`` rows
+    (``utils/native.py::dirty_bands``, a memcmp a band) and updates its
+    previous copy in place at the bands that changed. Used by
+    build_batch_i420_cached as the automatic fallback when a source has no
+    read_hints; off when the native library is missing (callers then run
+    the full letterbox path)."""
 
     def __init__(self, band: int = 16):
         self.band = int(band)
+        self._prev: np.ndarray | None = None
+        self._disabled = False
 
-    def hints(self, frame: np.ndarray) -> None:
-        return None
+    def hints(self, frame: np.ndarray) -> list | None:
+        if self._disabled:
+            return None
+        if self._prev is None or self._prev.shape != frame.shape:
+            self._prev = np.ascontiguousarray(frame).copy()
+            return None  # first sight / geometry change: full rebuild
+        bands = dirty_bands(np.ascontiguousarray(frame), self._prev, self.band)
+        if bands is None:  # no native lib: stop paying the prev copies
+            self._disabled = True
+            self._prev = None
+            return None
+        return bands
 
 
 def build_batch_i420_cached(
@@ -514,9 +543,15 @@ def build_batch_i420_cached(
     ({cam_id: [(y0, y1), ...]}) re-letterbox only those source bands into
     their persistent batch slot. Any change to the camera set, slot layout,
     or active-rows rung rebuilds the state transparently (that scan runs
-    the full path). Returns the PERSISTENT batch buffer — callers must
-    finish reading it (encode/upload) before the next call. Without cv2 it
-    is build_batch_i420, and ``state`` stays empty."""
+    the full path). Cameras without hints are diffed by a
+    SourceChangeDetector a camera, which keeps a copy of the frame the slot
+    was last built from: whenever the slot is built from anything else (the
+    source's own hints, a full letterbox, a blanked outage) the detector is
+    dropped, so its copy never lags the slot and a band that reverts can
+    never be reported clean while the slot holds older pixels. Returns the
+    PERSISTENT batch buffer — callers must finish reading it (encode/upload)
+    before the next call. Without cv2 it is build_batch_i420, and ``state``
+    stays empty."""
     cam_ids = list(frames.keys())
     b = slots or max(1, len(cam_ids))
     rows = size if active_rows is None else active_rows
@@ -563,16 +598,25 @@ def build_batch_i420_cached(
                 batch[i, rows:, :] = 128
                 state["caches"][cam] = LetterboxCache(size, rows, buf=batch[i])
                 state["live"].discard(cam)
+                # the change detector's previous copy predates the outage;
+                # on the camera's return it would under-report any band
+                # that reverted to its pre-outage content, ghosting stale
+                # pixels into the cache forever — drop it with the cache
+                state.get("detectors", {}).pop(cam, None)
                 slot_status[i] = None  # slot content changed (blanked)
             continue
         dirty = None if hints is None else hints.get(cam)
+        detectors = state.setdefault("detectors", {})
         if dirty is None and state["caches"][cam].banded_capable(frame):
-            # hintless source: the change detector's hints (always None in
-            # the port, a full re-letterbox; see SourceChangeDetector)
-            det = state.setdefault("detectors", {}).setdefault(
-                cam, SourceChangeDetector()
-            )
-            dirty = det.hints(frame)
+            # hintless source: compute hints by diffing the raw frame
+            # against the detector's previous copy
+            dirty = detectors.setdefault(cam, SourceChangeDetector()).hints(frame)
+        else:
+            # the slot is built from the source's hints or in full, not by
+            # the detector: its previous copy would lag the slot, and a band
+            # that later reverts to that copy would be reported clean while
+            # the slot still holds the newer pixels
+            detectors.pop(cam, None)
         state["caches"][cam].update(frame, dirty)
         slot_status[i] = (cam if state["caches"][cam].last_bands is not None
                           else None)
@@ -606,6 +650,24 @@ def delta_hints_for(state: dict, block_bytes: int) -> list | None:
 # ---------------------------------------------------------------------------
 # temporal delta transfer: ship only the blocks that changed
 # ---------------------------------------------------------------------------
+
+def changed_blocks(cur: np.ndarray, prev: np.ndarray, block: int, cap: int,
+                   idx: np.ndarray | None = None, blocks: np.ndarray | None = None) -> int:
+    """The numpy copy of ``utils/native.py::delta_blocks`` (its plain
+    version): the most changed `block`-byte blocks of any frame of cur
+    against prev ([B, NBYTES] uint8); with cap > 0 also the first cap
+    changed blocks of each frame into idx [B, cap] (-1 padded, as the
+    caller allocates it) and blocks [B, cap, block]."""
+    b = cur.shape[0]
+    changed = (cur != prev).reshape(b, -1, block).any(axis=2)
+    if cap > 0:
+        fb = cur.reshape(b, -1, block)
+        for i in range(b):
+            ci = np.flatnonzero(changed[i])[:cap]
+            idx[i, : len(ci)] = ci
+            blocks[i, : len(ci)] = fb[i, ci]
+    return int(changed.sum(axis=1).max()) if b else 0
+
 
 class DeltaPayload(tuple):
     """A DeltaEncoder.encode() result: a plain ("raw", ...)/("delta", ...)
@@ -693,8 +755,11 @@ class DeltaEncoder:
         flat = np.ascontiguousarray(flat)
         if hints is not None:
             return self._encode_hinted(batch, flat, nblocks, hints)
-        changed = (flat != self._prev).reshape(b, nblocks, self.block).any(axis=2)
-        max_changed = int(changed.sum(axis=1).max()) if b else 0
+        search = delta_blocks
+        max_changed = search(flat, self._prev, self.block, 0)
+        if max_changed is None:  # no native lib: the numpy copy
+            search = changed_blocks
+            max_changed = search(flat, self._prev, self.block, 0)
         cap = None
         for denom in self.LADDER:
             if max_changed <= nblocks // denom:
@@ -705,11 +770,7 @@ class DeltaEncoder:
             return self._out(("raw", batch))
         idx = np.full((b, cap), -1, np.int32)
         blocks = np.zeros((b, cap, self.block), np.uint8)
-        fb = flat.reshape(b, nblocks, self.block)
-        for i in range(b):
-            ci = np.flatnonzero(changed[i])
-            idx[i, : len(ci)] = ci
-            blocks[i, : len(ci)] = fb[i, ci]
+        search(flat, self._prev, self.block, cap, idx, blocks)
         self._prev = flat.copy()
         return self._out(("delta", idx, blocks))
 

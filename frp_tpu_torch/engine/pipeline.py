@@ -26,10 +26,11 @@ replica on each data position's device and splits every batch into
 contiguous equal row shards, one a position; every stage is frame-local, so
 each position runs its own rows, as the JAX engine's ``P("data")`` batch.
 
-Not ported yet (ROADMAP):
-``build_pipeline``'s ``with_spoof=False``, ``with_quality=False``
-and ``spoof_size``, and the engine's ``with_spoof=False``, which no caller
-of the port sets.
+``with_spoof=False`` (both entry points and ``build_stages``) leaves the
+spoof net out and ``fake_prob`` out of the results (its packed column is
+zeros); ``with_quality=False`` leaves out ``quality`` and ``blur_score``;
+``spoof_size`` != 112 resizes the crops bilinearly (antialiased when it
+shrinks, as ``jax.image.resize``) before the spoof net.
 """
 
 from __future__ import annotations
@@ -121,6 +122,16 @@ def embed_compact_rungs(
     return [k for k in rungs if 0 < k < n]
 
 
+def resize_crops(crops: torch.Tensor, size: int) -> torch.Tensor:
+    """[K, S, S, C] f32 crops -> [K, size, size, C]: bilinear at pixel
+    centres, antialiased when it shrinks them, as ``jax.image.resize``'s
+    "bilinear" (a triangle kernel widened by the scale, renormalised at the
+    border)."""
+    return torch.nn.functional.interpolate(
+        crops.permute(0, 3, 1, 2), size=(size, size), mode="bilinear", align_corners=False,
+        antialias=True).permute(0, 2, 3, 1)
+
+
 def build_stages(
     *,
     device,
@@ -131,15 +142,18 @@ def build_stages(
     nms_thresh: float = 0.4,
     iom_thresh: float = 0.5,
     top_k: int = 5,
+    with_spoof: bool = True,
+    with_quality: bool = True,
     compute_dtype: str = "bfloat16",
+    spoof_size: int = 112,
     fused_head: bool = True,
     embedder_forward=mobilefacenet_forward,
     flip_tta: bool = False,
     compact: bool = True,
 ):
     """The pipeline as chained stage functions (the JAX package's
-    ``build_stages`` with spoof and quality always on and 112 px spoof
-    crops). Constants live on ``device`` once, so no stage copies host data
+    ``build_stages``; ``with_spoof``, ``with_quality`` and ``spoof_size`` as
+    there). Constants live on ``device`` once, so no stage copies host data
     to the card. The detect stage's head is the fused detection head
     (kernel 1), as the JAX stages' on a TPU; ``fused_head=False`` takes
     decode + ``nms_padded_batched`` (kernel 3), the head of the JAX
@@ -192,21 +206,21 @@ def build_stages(
         # the identity keeps their sample coordinates benign
         mats = torch.where(dets["valid"][..., None, None], mats, ident)
         crops = warp_crops_batched(frames, mats, out_size=112)  # [B, M, 112, 112, 3]
-        q = assess_quality_batch(
-            crops.reshape(b * m, 112, 112, 3),
-            dets["boxes"].reshape(b * m, 4),
-            (h, w),
-            dets["valid"].reshape(-1),
-        )
-        return {
-            "crops": crops,
-            "quality": q["score"].reshape(b, m),
-            "blur_score": q["blur_score"].reshape(b, m),
-        }
+        out = {"crops": crops}
+        if with_quality:
+            q = assess_quality_batch(
+                crops.reshape(b * m, 112, 112, 3),
+                dets["boxes"].reshape(b * m, 4),
+                (h, w),
+                dets["valid"].reshape(-1),
+            )
+            out["quality"] = q["score"].reshape(b, m)
+            out["blur_score"] = q["blur_score"].reshape(b, m)
+        return out
 
     def embed_core(params, flat):
         """Embedder + spoof on a flat crop batch [K, 112, 112, 3] ->
-        (embeddings [K, D] f32, fake_prob [K])."""
+        (embeddings [K, D] f32, fake_prob [K] or None without spoof)."""
         emb_in = normalize_face(flat).to(cdtype)
         emb = embedder_forward(params["embedder"], emb_in)
         if flip_tta:
@@ -215,7 +229,10 @@ def build_stages(
             # formula, not l2_normalize's rsqrt). Spoof is not doubled
             s = emb + embedder_forward(params["embedder"], torch.flip(emb_in, dims=[2]))
             emb = s / torch.clamp(torch.linalg.vector_norm(s, dim=-1, keepdim=True), min=1e-12)
-        logits = mobilenetv3_forward(params["spoof"], normalize_imagenet(flat).to(cdtype))
+        if not with_spoof:
+            return emb, None
+        sin = flat if spoof_size == 112 else resize_crops(flat, spoof_size)
+        logits = mobilenetv3_forward(params["spoof"], normalize_imagenet(sin).to(cdtype))
         return emb, torch.softmax(logits, dim=-1)[:, 1]
 
     compact_enabled = compact and os.getenv("FRP_EMBED_COMPACT", "1") != "0"
@@ -242,13 +259,13 @@ def build_stages(
             take = torch.argsort((~vflat).to(torch.uint8), stable=True)[:k]
             emb_k, fake_k = embed_core(params, flat[take])
             emb = emb_k.new_zeros((n, emb_k.shape[-1])).index_copy_(0, take, emb_k)
-            fake = fake_k.new_zeros((n,)).index_copy_(0, take, fake_k)
+            fake = None if fake_k is None else fake_k.new_zeros((n,)).index_copy_(0, take, fake_k)
         # distance-scale calibration (weights/calibration*.json): scaling
         # the embeddings scales every euclidean distance downstream
-        return {
-            "embeddings_flat": torch.where(vflat[:, None], emb * scale, 0.0),
-            "fake_prob": torch.where(valid, fake.reshape(b, m), 0.0),
-        }
+        out = {"embeddings_flat": torch.where(vflat[:, None], emb * scale, 0.0)}
+        if with_spoof:
+            out["fake_prob"] = torch.where(valid, fake.reshape(b, m), 0.0)
+        return out
 
     def match_stage(emb_flat, valid, gallery, gallery_valid, tol):
         b, m = valid.shape
@@ -289,7 +306,9 @@ def build_stages(
 
     def pack_stage(dets, crop_out, emb_out, match_out):
         """Every per-face scalar output in ONE [B, M, 22] f32 tensor
-        (PACKED_LAYOUT), so a fetch is one device->host copy."""
+        (PACKED_LAYOUT), so a fetch is one device->host copy. The columns
+        of outputs left out (no spoof, no quality) are zeros."""
+        zeros = dets["scores"].new_zeros(dets["scores"].shape)
         cols = [
             dets["boxes"],                                   # 0:4
             dets["landmarks"],                               # 4:14
@@ -298,9 +317,9 @@ def build_stages(
             match_out["best_idx"][..., None],                # 16
             match_out["best_distance"][..., None],           # 17
             match_out["is_match"][..., None],                # 18
-            emb_out["fake_prob"][..., None],                 # 19
-            crop_out["quality"][..., None],                  # 20
-            crop_out["blur_score"][..., None],               # 21
+            emb_out.get("fake_prob", zeros)[..., None],      # 19
+            crop_out.get("quality", zeros)[..., None],       # 20
+            crop_out.get("blur_score", zeros)[..., None],    # 21
         ]
         return torch.cat([c.to(torch.float32) for c in cols], dim=-1)
 
@@ -345,28 +364,33 @@ def build_pipeline(
     iom_thresh: float = 0.5,
     tolerance: float = 0.6,
     top_k: int = 5,
+    with_spoof: bool = True,
+    with_quality: bool = True,
     compute_dtype: str = "bfloat16",
+    spoof_size: int = 112,
     distance_scale: float = 1.0,
 ):
     """The single-program pipeline (``frp_tpu/engine/pipeline.py::build_pipeline``):
     returns ``pipeline(params, frames, gallery, gallery_valid, priors)`` ->
     dict of boxes [B, M, 4], scores, landmarks [B, M, 10], valid, count [B],
     embeddings [B, M, D], best_idx, best_distance, is_match, topk_idx,
-    topk_distance [B, M, top_k], fake_prob, quality, blur_score; all tensors
-    on ``device``, all knobs fixed here. ``params`` holds the converted
-    ``detector``, ``embedder`` and ``spoof`` trees, ``frames`` is [B, H, W, 3]
-    uint8 RGB, ``priors`` the anchors of ``det_size``.
+    topk_distance [B, M, top_k], fake_prob (with spoof), quality, blur_score
+    (with quality); all tensors on ``device``, all knobs fixed here.
+    ``params`` holds the converted ``detector``, ``embedder`` and ``spoof``
+    trees, ``frames`` is [B, H, W, 3] uint8 RGB, ``priors`` the anchors of
+    ``det_size``.
 
     It chains the stages of ``build_stages``; its head is decode +
     ``nms_padded_batched``, never the fused head, as the reference's: on the
-    card a call launches kernel 3 and kernel 2 once each. Spoof and quality
-    are always on, as in ``build_stages``. ``device=None`` means the card and
-    raises without it."""
+    card a call launches kernel 3 and kernel 2 once each. ``with_spoof``,
+    ``with_quality`` and ``spoof_size`` as in ``build_stages``.
+    ``device=None`` means the card and raises without it."""
     device = resolve_device(device)
     stages = build_stages(
         device=device, det_size=det_size, max_faces=max_faces, pre_nms_topk=pre_nms_topk,
         conf_thresh=conf_thresh, nms_thresh=nms_thresh, iom_thresh=iom_thresh,
-        top_k=top_k, compute_dtype=compute_dtype, fused_head=False, compact=False)
+        top_k=top_k, with_spoof=with_spoof, with_quality=with_quality,
+        compute_dtype=compute_dtype, spoof_size=spoof_size, fused_head=False, compact=False)
 
     @torch.no_grad()
     def pipeline(params, frames, gallery, gallery_valid, priors):
@@ -496,6 +520,10 @@ class RecognitionEngine:
     the JAX engine's ``device_put`` does (enrolment's B=1 included). The
     stages are launched stage by stage across the shards, and a fetch
     copies each device's results once and joins them in row order.
+
+    ``with_spoof=False`` builds the stages without the spoof net: results
+    carry no ``fake_prob`` (the packed column is zeros) and encode_image's
+    faces ``fake_prob=None``, as in the JAX engine.
     """
 
     def __init__(
@@ -504,6 +532,7 @@ class RecognitionEngine:
         device=None,
         mesh=None,
         seed: int = 0,
+        with_spoof: bool = True,
         allow_stale_calibration: bool = False,
     ):
         if mesh is not None:
@@ -516,6 +545,7 @@ class RecognitionEngine:
         else:
             positions = [resolve_device(device)]
         self.mesh = mesh
+        self.with_spoof = with_spoof
         self.device = positions[0]
         self.cfg = cfg or get_config()
         arch = self.cfg.embedder_arch
@@ -523,10 +553,10 @@ class RecognitionEngine:
         self.preferred_fmt = "yuv420"
         if arch.startswith("iresnet"):
             embedder = init_iresnet(seed + 1, variant=arch, embed_dim=self.cfg.embed_dim)
-            embedder_forward = iresnet_forward
+            self._embedder_forward = iresnet_forward
         else:
             embedder = init_mobilefacenet(seed + 1, embed_dim=self.cfg.embed_dim)
-            embedder_forward = mobilefacenet_forward
+            self._embedder_forward = mobilefacenet_forward
         host_params = {
             "detector": init_retinaface(seed),
             "embedder": embedder,
@@ -555,8 +585,9 @@ class RecognitionEngine:
                         conf_thresh=self.cfg.det_conf_threshold,
                         nms_thresh=self.cfg.det_nms_threshold,
                         iom_thresh=self.cfg.det_nms_iom_threshold,
+                        with_spoof=with_spoof,
                         compute_dtype=self.cfg.compute_dtype,
-                        embedder_forward=embedder_forward,
+                        embedder_forward=self._embedder_forward,
                         flip_tta=self.cfg.embed_flip_tta,
                     ),
                 }
@@ -865,8 +896,9 @@ class RecognitionEngine:
     def encode_image(self, image: np.ndarray):
         """Detect + embed one RGB image of any geometry (enrolment). Returns a
         list of face dicts (embedding, box, landmarks, score, quality,
-        fake_prob) with coordinates in the original image's pixels; a
-        non-square image is letterboxed on the host to the det square."""
+        fake_prob: None without spoof) with coordinates in the original
+        image's pixels; a non-square image is letterboxed on the host to the
+        det square."""
         size = self.cfg.det_size
         h, w = image.shape[:2]
         scale, off = 1.0, (0.0, 0.0)
@@ -888,8 +920,8 @@ class RecognitionEngine:
                 "box": out["boxes"][0, i],
                 "landmarks": out["landmarks"][0, i],
                 "score": float(out["scores"][0, i]),
-                "quality": float(out["quality"][0, i]),
-                "fake_prob": float(out["fake_prob"][0, i]),
+                "quality": float(out["quality"][0, i]) if "quality" in out else 0.0,
+                "fake_prob": float(out["fake_prob"][0, i]) if "fake_prob" in out else None,
             })
         return faces
 

@@ -11,6 +11,11 @@ PyTorch's current stream as ``c_void_p``.
 Nothing is compiled or loaded at import: the first CUDA call of a wrapper
 builds its kernel, and ``build()`` compiles several sources in parallel (one
 ``nvcc`` process each, all started together).
+
+The host library ``csrc/framepack.cpp`` (the frame packer and change
+searches of ``utils/native.py``) is built beside them by ``build_host``, with
+``g++`` at its first use, named the same way by a hash of its source and
+flags.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
+GXX_FLAGS = ("-O2", "-shared", "-fPIC")
+GXX_LIBS = ("-lpthread",)
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -56,6 +64,40 @@ def library_path(name: str) -> str:
             with open(os.path.join(CSRC_DIR, fn), "rb") as f:
                 h.update(fn.encode() + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def host_library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(GXX_FLAGS + GXX_LIBS).encode())
+    with open(os.path.join(CSRC_DIR, f"{name}.cpp"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> str:
+    """The path of the host library ``csrc/{name}.cpp``, compiled with g++
+    first if it is not built yet. Processes that build it at once each write
+    a temporary file of their own and rename it into place, so none loads a
+    half-written library; a path is never rewritten with other bytes, since
+    the name changes with the source. Raises RuntimeError when g++ is
+    missing or fails."""
+    out = host_library_path(name)
+    with _lock:
+        if os.path.exists(out):
+            return out
+        gxx = shutil.which("g++") or shutil.which("c++")
+        if gxx is None:
+            raise RuntimeError("g++ not found on PATH")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        res = subprocess.run(
+            [gxx, *GXX_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cpp"), *GXX_LIBS],
+            capture_output=True, text=True, timeout=120)
+        if res.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise RuntimeError(f"{name}: g++ exited {res.returncode}\n{res.stderr}")
+        os.replace(tmp, out)
+        return out
 
 
 def build(names=KERNELS) -> dict[str, float]:

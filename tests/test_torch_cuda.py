@@ -6,7 +6,8 @@ calls; each trainer's f32 step against the CPU and the bf16 ArcFace loss
 falling; the serving default (bf16) against the CPU engine at bf16; and the
 deepfake service on the card against the CPU; the engine over a mesh of the
 card against the unsharded engine, and the ArcFace step in a one-rank NCCL
-group against one process. The kernels have no CPU mode, so these tests are marked ``cuda`` and
+group against one process; ``build_pipeline``'s switches and the engine
+without spoof against the CPU. The kernels have no CPU mode, so these tests are marked ``cuda`` and
 skip where torch.cuda.is_available() is false.
 
 The card machine has no JAX and tests/conftest.py imports it, so run them
@@ -265,6 +266,60 @@ def test_build_pipeline_on_the_card_matches_cpu(cuda):
     for key, atol in (("boxes", 1e-2), ("landmarks", 1e-2), ("embeddings", 1e-3),
                       ("fake_prob", 1e-3), ("quality", 1e-3), ("best_distance", 1e-3)):
         np.testing.assert_allclose(got[key][v], want[key][v], rtol=0, atol=atol, err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_spoof,with_quality,spoof_size", [
+    (False, True, 112), (True, False, 112), (True, True, 64), (True, True, 224)])
+def test_build_pipeline_switches_on_the_card_match_cpu(cuda, with_spoof, with_quality, spoof_size):
+    """Spoof off, quality off and other spoof crop sizes at det 128, f32
+    (TF32 off): card against CPU, the outputs switched off absent on both."""
+    kw = dict(det_size=128, max_faces=4, pre_nms_topk=64, conf_thresh=0.3, compute_dtype="float32",
+              with_spoof=with_spoof, with_quality=with_quality, spoof_size=spoof_size)
+    cfg = load_config(det_size=128, max_faces_per_frame=4, pre_nms_topk=64,
+                      det_conf_threshold=0.3, compute_dtype="float32")
+    frames = np.stack([make_scene(128, np.random.default_rng(s), max_faces=1, portrait=True)[0]
+                       for s in (3, 5, 8)])
+    gallery = np.random.default_rng(0).normal(size=(8, 128)).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        eng = RecognitionEngine(cfg, device=dev)
+        with torch.no_grad():
+            out = build_pipeline(device=dev, **kw)(
+                eng.params, torch.from_numpy(frames).to(dev), torch.from_numpy(gallery).to(dev),
+                torch.ones(8, dtype=torch.bool, device=dev), eng._priors)
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    want, got = outs
+    assert set(got) == set(want)
+    assert ("fake_prob" in got) == with_spoof and ("quality" in got) == with_quality
+    assert want["count"].sum() >= 3
+    for key in ("valid", "count", "best_idx", "is_match"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    v = want["valid"]
+    for key, atol in (("boxes", 1e-2), ("embeddings", 1e-3), ("fake_prob", 1e-3),
+                      ("quality", 1e-3), ("best_distance", 1e-3)):
+        if key in want:
+            np.testing.assert_allclose(got[key][v], want[key][v], rtol=0, atol=atol, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_engine_without_spoof_on_the_card_matches_cpu(cuda):
+    """RecognitionEngine(with_spoof=False) at det 128, f32 (TF32 off): the
+    packed results on the card against the CPU, the fake_prob column zeros,
+    encode_image's fake_prob None."""
+    cfg = load_config(det_size=128, max_faces_per_frame=4, pre_nms_topk=64,
+                      det_conf_threshold=0.3, compute_dtype="float32")
+    frames = np.stack([make_scene(128, np.random.default_rng(s), max_faces=1, portrait=True)[0]
+                       for s in (3, 5, 8)])
+    engs = [RecognitionEngine(cfg, device=d, with_spoof=False) for d in ("cpu", cuda)]
+    want, got = (e.fetch(e.submit(frames)) for e in engs)
+    assert want["count"].sum() >= 3 and not got["fake_prob"].any()
+    for key in ("valid", "count", "best_idx", "is_match"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    v = want["valid"]
+    np.testing.assert_allclose(got["boxes"][v], want["boxes"][v], rtol=0, atol=1e-2)
+    faces = engs[1].encode_image(frames[0])
+    assert faces and all(f["fake_prob"] is None for f in faces)
 
 
 @pytest.mark.cuda

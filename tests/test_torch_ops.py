@@ -170,3 +170,51 @@ def test_gallery_match_matches(n, tied):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
     np.testing.assert_allclose(got["topk_distance"].numpy(), np.asarray(want["topk_distance"]),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("boxes", [
+    [[10.0, 20.0, 50.0, 90.0], [0.0, 0.0, 112.0, 112.0], [30.5, 40.25, 31.0, 40.5]],
+    [[5.0, 5.0, 5.0, 5.0], [100.0, 50.0, 60.0, 10.0], [-20.0, -10.0, 300.0, 140.0]],  # empty, inverted
+])
+@pytest.mark.parametrize("out_size", [112, 224])
+def test_bbox_crop_matrices_match(boxes, out_size):
+    b = np.asarray(boxes, np.float32)
+    want = np.asarray(jalign.bbox_crop_matrices(jnp.asarray(b), out_size))
+    got = talign.bbox_crop_matrices(torch.from_numpy(b), out_size).numpy()
+    assert got.shape == want.shape == (3, 2, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+
+
+def test_warp_crops_by_frame_index_match():
+    """JAX's warp_crops (faces of any frames, picked by index; float frames)
+    against the port's, within 1e-4 on unit-range frames: similarity crops,
+    bbox crops, and degenerate matrices whose sample coordinates reach 1e12
+    (clamped to the border in float space before the integer conversion).
+    The two differ by f32 rounding only: XLA's fused arithmetic under jit and
+    one ulp of the inverse's einsum move a 0-255 crop by up to 8 ulps
+    (1.2e-4 at 130); the sampler alone, fed the same coordinates, is equal
+    bit for bit on 0-255 frames."""
+    pixels = _smooth_frames(np.random.default_rng(8), 3, 120, 160, passes=6).astype(np.float32)
+    frames = pixels / np.float32(255.0)
+    mats = np.stack([
+        _forward(60, 50, 40, 10), _forward(90, 150, 100, -25), _forward(30, 5, 115, 0),
+        *np.asarray(jalign.bbox_crop_matrices(jnp.asarray([[20.0, 30.0, 80.0, 100.0],
+                                                           [140.0, 0.0, 160.0, 20.0]]), 112)),
+        np.array([[1e-12, 0.0, 0.0], [0.0, 1e-12, 0.0]], np.float32),   # coords ~1e12
+        np.array([[-1e-10, 1e-10, 3.0], [1e-10, 1e-10, -5.0]], np.float32),
+    ]).astype(np.float32)
+    idx = np.array([0, 2, 1, 1, 0, 2, 1], np.int32)
+    want = np.asarray(jalign.warp_crops(jnp.asarray(frames), jnp.asarray(mats), jnp.asarray(idx), 112))
+    got = talign.warp_crops(torch.from_numpy(frames), torch.from_numpy(mats), torch.from_numpy(idx), 112)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (7, 112, 112, 3)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    # the sampler alone on a 0-255 frame: coordinates inside, on the border
+    # and far past it, and a crop's grid
+    grid = np.arange(112, dtype=np.float32) * np.float32(1.37) - np.float32(3.1)
+    xs = np.concatenate([[0.0, 0.5, 159.0, 158.999, 1e12, -1e12], grid]).astype(np.float32)
+    ys = np.concatenate([[0.0, 119.0, 60.25, -3.0, 1e12, 7.5], grid[::-1]]).astype(np.float32)
+    got = talign._bilinear_sample(torch.from_numpy(pixels[1]), torch.from_numpy(xs),
+                                  torch.from_numpy(ys)).numpy()
+    want = np.asarray(jalign._bilinear_sample(jnp.asarray(pixels[1]), jnp.asarray(xs), jnp.asarray(ys)))
+    np.testing.assert_array_equal(got, want)

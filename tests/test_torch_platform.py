@@ -3,9 +3,8 @@
 - the host copies equal the JAX package's: the scan's batching over a
   5-tick 2-camera SyntheticSource sequence (arrays, BatchMeta, DeltaEncoder
   payloads, unmap_results) with the sources' change hints, without them
-  (the JAX package's changed-band detector against the port's full
-  letterbox), and without cv2 (the port's numpy packer against
-  the JAX package's native one), bit for bit; SyntheticSource frames and
+  (both packages' changed-band detectors), and without cv2 (both
+  packages' native packers), bit for bit; SyntheticSource frames and
   hints bit for bit; the gallery's host and bulk calls; the matching and
   quality helpers; the schemas on valid and invalid documents;
 - a store written by either package's platform hydrates into the other's
@@ -102,9 +101,8 @@ def _sources(pkg_source):
 def _scan_sequence(batch_mod, source_cls, mode, ticks=5):
     """What the camera route's scan builds over `ticks` reads of two
     synthetic cameras: (batch, meta, payload) a tick. mode "hints" passes the
-    sources' change hints, "detector" none (the JAX package's native
-    changed-band detector steps in, the port letterboxes whole frames),
-    "no_cv2" runs without cv2."""
+    sources' change hints, "detector" none (each package's changed-band
+    detector steps in), "no_cv2" runs without cv2."""
     sources = _sources(source_cls)
     state: dict = {}
     enc = batch_mod.DeltaEncoder(block_bytes=128)
@@ -191,22 +189,31 @@ def test_letterbox_i420_equals_native_packer(shape, size, rows):
     assert np.float32(scale) == scales[0] and tuple(off) == tuple(offsets[0])
 
 
-def test_hintless_cameras_take_the_full_letterbox():
-    """The port's change detector is off (no native diff): a camera with no
-    change hints is letterboxed whole every scan, equal to build_batch_i420,
-    and its slot's delta hint is None (the encoder diffs every block)."""
-    det = tbatch.SourceChangeDetector()
-    sources = _sources(TSource)
-    state: dict = {}
-    for tick in range(3):
-        frames = {c: s.read()[1] for c, s in sources.items()}
-        assert det.hints(frames[0]) is None
-        rows = tbatch.active_rows_for([f.shape[:2] for f in frames.values()], DET)
-        cached, _ = tbatch.build_batch_i420_cached(frames, DET, state, active_rows=rows)
-        full, _ = tbatch.build_batch_i420(frames, DET, active_rows=rows)
-        assert np.array_equal(cached, full)
-        assert tbatch.delta_hints_for(state, 128) == [None, None]
-        assert all(c.last_bands is None for c in state["caches"].values())
+def test_hintless_cameras_take_the_detectors_bands():
+    """A camera with no change hints is diffed by its change detector (the
+    port's own framepack library): from the third scan on the cache takes
+    the detector's bands, equal to the JAX package's on the same sequence,
+    the batch equals build_batch_i420, and the slot's delta hint is the
+    bands' block ranges, as JAX's."""
+    got = {}
+    for mod, source_cls in ((jbatch, JSource), (tbatch, TSource)):
+        sources = _sources(source_cls)
+        state: dict = {}
+        seq = []
+        for tick in range(4):
+            frames = {c: s.read()[1] for c, s in sources.items()}
+            rows = mod.active_rows_for([f.shape[:2] for f in frames.values()], DET)
+            cached, _ = mod.build_batch_i420_cached(frames, DET, state, active_rows=rows)
+            full, _ = mod.build_batch_i420(frames, DET, active_rows=rows)
+            assert np.array_equal(cached, full)
+            seq.append(([state["caches"][c].last_bands for c in sources],
+                        mod.delta_hints_for(state, 128)))
+        got[mod] = seq
+    assert got[jbatch] == got[tbatch]
+    bands = [b for b, _ in got[tbatch]]
+    assert bands[0] == bands[1] == [None, None]  # the caches' first build, the detectors' first sight
+    assert all(b for tick in bands[2:] for b in tick)  # then the detectors' bands
+    assert all(h and h != [None, None] for _, h in got[tbatch][2:])
 
 
 def test_gallery_host_and_bulk_calls_equal():
