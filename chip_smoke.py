@@ -27,7 +27,10 @@ Phases, each printed on its own lines, in order:
             frame, then an enrolment with encode_image and one more scan.
             Checks the launch counts, the resident batch against
             DeltaEncoder.apply_host, the detections and the enrolled match;
-            prints frames/s, faces/s and per-stage ms.
+            prints frames/s, faces/s and per-stage ms, submit_encoded's host
+            ms, the host syncs of each of 5 steady batches' submit and fetch
+            (torch's sync debug mode) and the embed stage's rung counts
+            (speculated, redone in a fetch, whole).
 5. nms      an engine with pre_nms_topk=512, whose detect stage goes through
             decode + nms_padded_batched and so launches the greedy kernel.
 6. parity   the engine at f32 (TF32 off) on cuda and on the CPU over 2
@@ -81,7 +84,9 @@ Phases, each printed on its own lines, in order:
             stage, the delta payload's size, scans/s and frames/s. Then
             the same cameras through a cuda and a cpu context, both at f32
             (TF32 off), 2 scans each: the same targets and cameras, valid,
-            count and best_idx bit for bit, boxes within 1e-2 px.
+            count and best_idx bit for bit, boxes within 1e-2 px. Also the
+            scans' submit ms, the embed stage's rung counts, and the host
+            syncs of one more (dry) scan.
 11. services the rest of the platform on phase 10's app (a new one: the
             default config, the 8 cameras), served over the socket: POST
             /deepfake/detect with a 1920x1080 MJPG clip of 60 frames, one
@@ -160,16 +165,20 @@ Phases, each printed on its own lines, in order:
 14. mesh     (a) the engine over a mesh of the card repeated twice (data 2):
             the default profile over phase 4's stream, 4 frames a shard;
             kernels 1 and 2 launch once a shard a batch; ms/batch and the
-            host syncs a batch (torch's sync debug mode) beside an
+            host syncs of a steady batch's submit and fetch beside an
             unsharded engine's; against the unsharded engine at bf16 by
             phase 11's NEAR_TIE rule and at f32 (TF32 off) bit for bit in
-            valid, count and best_idx, boxes within 1e-2 px. (b) four gloo
+            valid, count and best_idx, boxes within 1e-2 px, also at B=1
+            and B=3, which the data axis does not divide (RGB frames, a
+            keyframe and a delta). (b) four gloo
             processes share the card as a 2 x 2 process mesh: the
             MobileFaceNet ArcFace (dp x tp), spoof and detector (dp) f32
             steps against one process on the card (train_parity's bounds),
             and the bf16 ArcFace step at phase 12's batch, its ms a step
-            against phase 12's. (c) a one-rank NCCL group runs the f32
-            ArcFace step against one process. (d) the FL service over the
+            against phase 12's. (c) a one-rank NCCL group (no collective in
+            its step) runs the f32 ArcFace step against one process, and
+            the bf16 step beside the same step without a mesh. (d) the FL
+            service over the
             mesh of (a) aggregates two clients: backend mesh_psum[2], the
             f32 mean bit for bit.
 
@@ -198,8 +207,18 @@ Phases, each printed on its own lines, in order:
             faces a batch those phases found, and the MFU over phase 8's
             device-busy ms and over each phase's ms/batch.
 
+16. entry    the twin of __graft_entry__.entry() (frp_tpu_torch/testing/
+            entry.py): fn(*example_args) on the card, build_pipeline at det
+            320, 8 slots, top-128, bf16, the seeded random nets on two noise
+            frames and a 128 x 128 gallery: one call launches the warp and
+            the greedy kernel at K=128 once each; 14 results, finite; ms a
+            call over 20 calls. The same forward at f32 (TF32 off) on the
+            card and on the CPU: valid and count bit for bit, boxes within
+            1e-2 px. Kernels 2 and 3 on the inputs that call gave them,
+            against their plain versions and timed as phase 3 times them.
+
 Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9,
-10, 11, 12, 13, 14 and 15 (b) and (c) and read just after. Any failed check raises, so the run exits
+10, 11, 12, 13, 14, 15 (b) and (c) and 16 and read just after. Any failed check raises, so the run exits
 non-zero. The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
@@ -254,6 +273,7 @@ ACCURACY = {**PROFILE, "embedder_arch": "iresnet18", "embed_flip_tta": True}
 ACCURACY_SCALE = 0.81303  # weights/calibration_iresnet18_flip.json
 FRAMES = 8
 TICKS = 20  # delta ticks after the keyframe
+SYNC_BATCHES = 5  # phase 4's steady batches under the sync count
 WARM = 3  # ticks left out of the steady-state window
 SEED = 0
 ATOL = 1e-3
@@ -453,12 +473,7 @@ def check_warp_crops(dev, frames: torch.Tensor, m=16, s=112) -> dict:
     frame, and on two faces a frame far larger than the frame."""
     b, h, w, _ = frames.shape
     inv = warp_faces(dev, b, h, w, m, s)
-    got = align_cuda.warp_crops_kernel(frames, inv, s)
-    want = align_cuda.warp_crops_plain(frames, inv, s)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    if not err <= ATOL:
-        raise AssertionError(f"warp_crops: max abs err {err} > {ATOL}")
+    out = hold_warp(frames, inv, s)
 
     # faces of 1100 and 1900 px centred in the frame: a 16 x 16 tile of the
     # crop spans 160 source px and more, and most of each crop is the frame's
@@ -471,6 +486,23 @@ def check_warp_crops(dev, frames: torch.Tensor, m=16, s=112) -> dict:
                       align_cuda.warp_crops_plain(frames, big, s))
     if not big_err <= ATOL:
         raise AssertionError(f"warp_crops, faces larger than the frame: max abs err {big_err} > {ATOL}")
+    return {**out, "large_face_max_abs_err": big_err}
+
+
+def hold_warp(frames: torch.Tensor, inv: torch.Tensor, s=112) -> dict:
+    """Kernel 2 on uint8 frames [B, H, W, 3] and inverse matrices [B, M, 2,
+    3] against its plain version (floats within ATOL), then its median time
+    over 50 launches, its bound, the plain version's time, and F.grid_sample
+    over the same samples (the yardstick)."""
+    b, h, w, _ = frames.shape
+    m = inv.shape[1]
+    dev = frames.device
+    got = align_cuda.warp_crops_kernel(frames, inv, s)
+    want = align_cuda.warp_crops_plain(frames, inv, s)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if not err <= ATOL:
+        raise AssertionError(f"warp_crops {tuple(frames.shape)}: max abs err {err} > {ATOL}")
 
     # the yardstick: one grid_sample over the f32 NCHW frames, every face's
     # 112 x 112 sample grid stacked along the output height
@@ -492,7 +524,7 @@ def check_warp_crops(dev, frames: torch.Tensor, m=16, s=112) -> dict:
     ops = b * m * s * s * (14 + 3 * 6)
     bms, by = bound(frames.numel() + inv.numel() * 4 + got.numel() * 4, ops)
     return dict(
-        shape=f"B={b} {h}x{w} M={m} S={s}", max_abs_err=err, large_face_max_abs_err=big_err,
+        shape=f"B={b} {h}x{w} M={m} S={s}", max_abs_err=err,
         library_max_abs_err=max_err(lib, want),
         ms=device_ms(lambda: align_cuda.warp_crops_kernel(frames, inv, s)),
         plain_ms=device_ms(lambda: align_cuda.warp_crops_plain(frames, inv, s), 20, True),
@@ -523,8 +555,14 @@ def greedy_input(dev, k: int, case: str = "smoke", b=FRAMES):
 def check_greedy_nms(dev, k: int, case: str = "smoke") -> dict:
     """Kernel 3 at B=8 on one of ``greedy_input``'s inputs: the keep mask bit
     for bit, then the times."""
-    eff, above = greedy_input(dev, k, case)
-    b = eff.shape[0]
+    return hold_greedy(*greedy_input(dev, k, case), case)
+
+
+def hold_greedy(eff: torch.Tensor, above: torch.Tensor, case: str) -> dict:
+    """Kernel 3 on an overlap [B, K, K] and its above mask: the keep mask
+    against the plain version's bit for bit, then its median time over 50
+    launches, its bound and the plain version's time."""
+    b, k = above.shape
     got = nms_cuda.greedy_suppress_kernel(eff, above, 1.0)
     want = nms_cuda.greedy_suppress_plain(eff, above, 1.0)
     torch.cuda.synchronize()
@@ -596,22 +634,26 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
     """Phase 4: the delta scan, the resident-batch check and the enrolment."""
     eng = RecognitionEngine(load_config(**profile), device=dev)
     enc = DeltaEncoder(block_bytes=128)
-    batches = [tick_batch(scenes, t) for t in range(ticks + 2)]
+    batches = [tick_batch(scenes, t) for t in range(ticks + 2 + SYNC_BATCHES)]
     payloads = [enc.encode(x) for x in batches]
     kinds = [p[0] for p in payloads]
-    if kinds != ["raw"] + ["delta"] * (ticks + 1):
+    if kinds != ["raw"] + ["delta"] * (ticks + 1 + SYNC_BATCHES):
         raise AssertionError(f"payload kinds {kinds}")
     timed = dev.type == "cuda"
     reset_launches()
     n_batches, faces, t0 = 0, 0, None
-    host = None
+    host, submit_ms = None, []
     for t in range(ticks + 1):
         if t == warm:
             if timed:
                 torch.cuda.synchronize()
                 eng.stage_events = []
             t0, faces = time.perf_counter(), 0
-        out = eng.fetch(eng.submit_encoded(payloads[t]))
+        t_submit = time.perf_counter()
+        handle = eng.submit_encoded(payloads[t])
+        if t >= warm:
+            submit_ms.append((time.perf_counter() - t_submit) * 1e3)
+        out = eng.fetch(handle)
         n_batches += 1
         faces += int(out["count"].sum())
         flat = batches[t].reshape(len(scenes), -1)
@@ -627,6 +669,14 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
         raise AssertionError("the resident batch differs from DeltaEncoder.apply_host")
     if not out["valid"].any():
         raise AssertionError("the scan found no face")
+    sync_payloads = payloads[ticks + 1 : ticks + 1 + SYNC_BATCHES]
+    syncs = None  # the sync count reads the card's; the CPU runs the batches only
+    if timed:
+        syncs = steady_syncs(eng, sync_payloads)
+    else:
+        for p in sync_payloads:
+            eng.fetch(eng.submit_encoded(p))
+    n_batches += SYNC_BATCHES
 
     # enrol one face of a frame that has one, then scan once more
     j = int(np.flatnonzero(out["valid"].any(axis=1))[0])
@@ -634,7 +684,7 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
     if not enrolled:
         raise AssertionError(f"encode_image found no face in scene {j}")
     eng.gallery.add("enrolled", enrolled[0]["embedding"])
-    after = eng.fetch(eng.submit_encoded(payloads[ticks + 1]))
+    after = eng.fetch(eng.submit_encoded(payloads[ticks + 1 + SYNC_BATCHES]))
     n_batches += 2
     slot = after["gallery_names"].index("enrolled")
     hit = after["valid"][j] & after["is_match"][j] & (after["best_idx"][j] == slot)
@@ -651,7 +701,19 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
         faces_per_batch=faces / steady, ms_per_batch=elapsed * 1e3 / steady,
         stage_ms=stages, enrolled_frame=j,
         enrolled_distance=float(after["best_distance"][j][hit].min()),
+        submit_ms=float(np.median(submit_ms)), syncs=syncs, embed=dict(eng.embed_stats),
     )
+
+
+def steady_syncs(eng: RecognitionEngine, payloads: list) -> dict:
+    """The host syncs (``host_syncs``) of steady batches of a scan, one
+    payload each: each batch's submit_encoded, and its fetch."""
+    out: dict = {"submit": [], "fetch": []}
+    for payload in payloads:
+        handle = {}
+        out["submit"].append(host_syncs(lambda: handle.update(h=eng.submit_encoded(payload))))
+        out["fetch"].append(host_syncs(lambda: eng.fetch(handle["h"])))
+    return out
 
 
 def run_nms_engine(dev, scenes: np.ndarray, profile: dict) -> dict:
@@ -1192,6 +1254,12 @@ def run_platform(dev, requests: int = PLATFORM_REQUESTS, **overrides) -> dict:
         device = scan_device_ms(ctx.engine.stage_events) if timed else []
         stage_device = stage_ms(ctx.engine.stage_events) if timed else {}
         ctx.engine.stage_events = None
+        embed = dict(ctx.engine.embed_stats)
+        # one more steady scan, dry, under the sync count: its submit and fetch
+        kept = len(fetched), len(seen["payload_bytes"])
+        syncs = (host_syncs(lambda: ctx.run_scan(cfg.face_tolerance, cfg.frame_skip, 10, True))
+                 if timed else None)
+        del fetched[kept[0]:], seen["payload_bytes"][kept[1]:]
     finally:
         stop()
         ctx.shutdown()
@@ -1238,6 +1306,7 @@ def run_platform(dev, requests: int = PLATFORM_REQUESTS, **overrides) -> dict:
         parts_ms={k.split(".", 1)[1]: v["mean_ms"] for k, v in stages.items() if k.startswith("scan.")},
         scans_per_s=requests / run["seconds"],
         frames_per_s=requests * PLATFORM_CAMERAS / run["seconds"],
+        embed=embed, syncs=syncs,
     )
 
 
@@ -2314,7 +2383,9 @@ MESH_STEPS = 6  # (b)'s and (c)'s bf16 steps, the median after TRAIN_WARM
 
 def host_syncs(fn) -> int:
     """The synchronizing CUDA calls fn() makes (each a wait of the host for
-    the card), as torch's sync debug mode reports them."""
+    the card), as torch's sync debug mode reports them. Its first use in a
+    process also warns that the mode is a prototype, a notice that is no
+    sync and is not counted."""
     import warnings
 
     torch.cuda.synchronize()
@@ -2325,7 +2396,7 @@ def host_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def enrol_faces(engines: list, frames: np.ndarray, fmt: str = "rgb") -> int:
@@ -2379,8 +2450,8 @@ def run_mesh_engine(dev, scenes: np.ndarray, ticks: int, warm: int) -> dict:
     renc = DeltaEncoder(block_bytes=128)
     ref.fetch(ref.submit_encoded(renc.encode(batches[-1])))
     nxt = tick_batch(scenes, ticks + 1)
-    syncs = {"sharded": host_syncs(lambda: eng.fetch(eng.submit_encoded(enc.encode(nxt)))),
-             "unsharded": host_syncs(lambda: ref.fetch(ref.submit_encoded(renc.encode(nxt))))}
+    syncs = {"sharded": steady_syncs(eng, [enc.encode(nxt)]),
+             "unsharded": steady_syncs(ref, [renc.encode(nxt)])}
 
     gallery = enrol_faces([eng, ref], scenes)
     runs = [kept_anchors(lambda e=e: [e.process_frames(scenes),
@@ -2407,13 +2478,33 @@ def run_mesh_engine(dev, scenes: np.ndarray, ticks: int, warm: int) -> dict:
         f32_faces += int(v.sum())
         for key in errs:
             errs[key] = max(errs[key], float(np.abs(got[key][v] - want[key][v]).max()))
+    # batches the data axis does not divide: B=1 and B=3 (shards of 1 and 0
+    # rows, of 2 and 1), as RGB frames and as a raw keyframe and a delta
+    uneven = {}
+    for b in (1, 3):
+        uenc, uref = DeltaEncoder(block_bytes=128), DeltaEncoder(block_bytes=128)
+        runs = [(pair[0].process_frames(scenes[:b]), pair[1].process_frames(scenes[:b]))]
+        for x in batches[:2]:
+            runs.append((pair[0].fetch(pair[0].submit_encoded(uenc.encode(x[:b]))),
+                         pair[1].fetch(pair[1].submit_encoded(uref.encode(x[:b])))))
+        uneven[b] = 0
+        for got, want in runs:
+            for key in ("valid", "count", "best_idx"):
+                if not np.array_equal(got[key], want[key]):
+                    raise AssertionError(f"the sharded f32 engine at B={b} differs in {key}")
+            v = want["valid"]
+            uneven[b] += int(v.sum())
+            for key in errs:
+                errs[key] = max(errs[key], float(np.abs(got[key][v] - want[key][v]).max()))
+        if not np.array_equal(pair[0]._delta_prev.cpu().numpy(), batches[1][:b]):
+            raise AssertionError(f"the sharded resident batch at B={b} differs from its tick")
     torch.backends.cudnn.allow_tf32 = True
     if not errs["boxes"] <= 1e-2:
         raise AssertionError(f"the sharded f32 engine's boxes differ by {errs['boxes']} px")
     return dict(launches=launches(), stream_launches=stream, batches=len(payloads),
                 ms_per_batch=elapsed * 1e3 / steady, frames_per_s=steady * len(scenes) / elapsed,
                 faces_per_batch=faces / steady, syncs=syncs, bf16=bf16, gallery=gallery,
-                f32_faces=f32_faces, f32_max_abs_err=errs)
+                f32_faces=f32_faces, f32_max_abs_err=errs, uneven_faces=uneven)
 
 
 def mesh_cases() -> dict:
@@ -2515,8 +2606,8 @@ def timed_case(got: dict) -> dict:
 
 
 def run_nccl_rank(dev) -> dict:
-    """Phase 14 (c): a one-rank NCCL group (a 1 x 1 process mesh, which
-    takes the collective path) runs the f32 ArcFace step, held against the
+    """Phase 14 (c): a one-rank NCCL group (a 1 x 1 process mesh, whose
+    step takes no collective) runs the f32 ArcFace step, held against the
     one-process step on the card, and the bf16 step at phase 12's batch,
     beside the same step without a mesh in the same process."""
     from frp_tpu_torch.testing.ranks import spawn_ranks, train_case
@@ -2925,6 +3016,90 @@ def run_stage_flops(engines: dict) -> dict:
     return out
 
 
+# --- phase 16: the entry ---------------------------------------------------------
+
+ENTRY_CALLS = 20
+
+
+def run_entry(dev) -> dict:
+    """Phase 16: the twin of __graft_entry__.entry() (testing/entry.py).
+    fn(*example_args) once, the kernels' inputs recorded as they pass: the
+    warp and the greedy kernel at K=128 once each, never the fused head; the
+    14 results at the reference's shapes, finite on valid slots, faces
+    found. Then ENTRY_CALLS more calls, ms a call on the synchronized host
+    clock. The same forward at f32 (TF32 off) on `dev` and on the CPU: valid
+    and count bit for bit, boxes within 1e-2 px. Last, both kernels on the
+    recorded inputs against their plain versions, timed as phase 3 times
+    them."""
+    from frp_tpu_torch.testing.entry import entry
+
+    timed = dev.type == "cuda"
+    sync = torch.cuda.synchronize if timed else (lambda: None)
+    fn, args = entry(device=dev)
+    wrapped = {"warp_crops": (align_cuda, "warp_crops_kernel"),
+               "greedy_nms": (nms_cuda, "greedy_suppress_kernel")}
+    real = {name: getattr(mod, attr) for name, (mod, attr) in wrapped.items()}
+    seen: dict = {}
+
+    def recording(name):
+        def call(*a):
+            seen.setdefault(name, a)
+            return real[name](*a)
+        return call
+
+    for name, (mod, attr) in wrapped.items():
+        setattr(mod, attr, recording(name))
+    reset_launches()
+    try:
+        with torch.no_grad():
+            out = fn(*args)
+        sync()
+    finally:
+        for name, (mod, attr) in wrapped.items():
+            setattr(mod, attr, real[name])
+    once = launches()
+    if timed and once != {"detection_head": 0, "warp_crops": 1, "greedy_nms": 1}:
+        raise AssertionError(f"one entry call launched {once}")
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if len(out) != 14 or shapes["embeddings"] != (2, 8, 128) or shapes["topk_idx"] != (2, 8, 5):
+        raise AssertionError(f"the entry's results {shapes}")
+    valid = out["valid"]
+    for key, v in out.items():
+        if v.is_floating_point() and not bool(torch.isfinite(v[valid]).all()):
+            raise AssertionError(f"the entry's {key} is not finite on its valid slots")
+    count = out["count"].cpu().tolist()
+    if min(count) == 0:
+        raise AssertionError(f"the entry found no face in a frame: count {count}")
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(ENTRY_CALLS):
+            fn(*args)
+        sync()
+    ms = (time.perf_counter() - t0) * 1e3 / ENTRY_CALLS
+    got_launches = launches()
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (f32, a32), (cpu, acpu) = entry(dev, "float32"), entry("cpu", "float32")
+    with torch.no_grad():
+        got, want = f32(*a32), cpu(*acpu)
+    torch.backends.cudnn.allow_tf32 = True
+    for key in ("valid", "count"):
+        if not torch.equal(got[key].cpu(), want[key]):
+            raise AssertionError(f"the entry at f32 differs from the CPU in {key}")
+    errs = {key: max_err(got[key].cpu()[want["valid"]], want[key][want["valid"]])
+            for key in ("boxes", "embeddings", "fake_prob")}
+    if not errs["boxes"] <= 1e-2:
+        raise AssertionError(f"the entry's f32 boxes differ from the CPU's by {errs['boxes']} px")
+    kernels = {}
+    if timed:
+        kernels = {"warp_crops": hold_warp(*seen["warp_crops"]),
+                   "greedy_nms": hold_greedy(*seen["greedy_nms"][:2], "entry")}
+    return dict(launches=got_launches, once=once, count=count, ms=ms, f32_max_abs_err=errs,
+                f32_faces=int(want["valid"].sum()), kernels=kernels)
+
+
 def gpu_name_and_limit() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2995,6 +3170,10 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in scan["stage_ms"].items()))
     say("engine", f"resident batch == apply_host; enrolled face of frame "
         f"{scan['enrolled_frame']} matched at distance {scan['enrolled_distance']:.4f}")
+    say("engine", f"submit_encoded {scan['submit_ms']:.2f} ms (host clock, median over the steady "
+        f"ticks); host syncs of {SYNC_BATCHES} steady batches (torch's sync debug mode): submit "
+        f"{scan['syncs']['submit']}, fetch {scan['syncs']['fetch']}; embed rungs {scan['embed']} "
+        f"(speculated from landed counts, redone in a fetch, whole batch); on {smi}")
 
     nms = run_nms_engine(dev, scenes, PROFILE)
     say("nms", f"pre_nms_topk=512: launches {nms['launches']}, {nms['faces']} faces")
@@ -3077,6 +3256,9 @@ def main() -> int:
         + "; host parts (mean ms) " + ", ".join(f"{k} {v:.2f}" for k, v in plat["parts_ms"].items())
         + "; stage ms (device, median) " + ", ".join(f"{k} {v:.3f}" for k, v in plat["stage_ms"].items())
         + f"; delta payload {plat['payload_kb']:.1f} KiB (median); on {smi}")
+    say("platform", f"submit {plat['parts_ms'].get('submit', float('nan')):.2f} ms a scan (mean); "
+        f"host syncs of one more steady scan (dry): {plat['syncs']}; embed rungs over the "
+        f"requests {plat['embed']}")
     ppar = run_platform_parity(dev)
     say("platform", f"f32, TF32 off, cuda and cpu contexts, {ppar['scans']} scans each: the same "
         f"{ppar['detections']} targets and cameras, valid, count, best_idx equal; max abs err "
@@ -3227,8 +3409,8 @@ def main() -> int:
         f"{me['stream_launches']} over {me['batches']} batches (kernels 1 and 2 once a shard); "
         f"steady {me['frames_per_s']:.1f} frames/s, {me['faces_per_batch']:.2f} faces/batch, "
         f"{me['ms_per_batch']:.2f} ms/batch against phase 4's {scan['ms_per_batch']:.2f}; host "
-        f"syncs a batch {me['syncs']['sharded']} sharded, {me['syncs']['unsharded']} unsharded "
-        "(torch's sync debug mode)")
+        f"syncs of a steady batch (torch's sync debug mode) sharded {me['syncs']['sharded']}, "
+        f"unsharded {me['syncs']['unsharded']}")
     b = me["bf16"]
     say("mesh", f"(a) bf16, sharded against unsharded on the card, {b['frames']} frames, "
         f"{b['slots']} faces, gallery {me['gallery']}: valid differ {b['valid_diff']}, count "
@@ -3236,7 +3418,10 @@ def main() -> int:
         f"anchor flips {b['anchor_flips']} (not a near tie {b['flips_not_tied']}), best_idx "
         f"differ {b['best_idx_diff']}; min cosine {b['cos_min']:.5f}, boxes {b['box_px']:.3g} px; "
         f"f32, TF32 off, 3 payloads, {me['f32_faces']} faces: valid, count, best_idx equal; max "
-        "abs err " + ", ".join(f"{k} {v:.3g}" for k, v in me["f32_max_abs_err"].items()))
+        "abs err " + ", ".join(f"{k} {v:.3g}" for k, v in me["f32_max_abs_err"].items())
+        + "; at f32 B=1 and B=3 (rows the data axis does not divide; RGB, a keyframe and a "
+        "delta) equal to the unsharded engine, faces "
+        + ", ".join(f"B={b} {n}" for b, n in me["uneven_faces"].items()))
     mt = run_mesh_train(dev)
     rs = mt["rank_seconds"]
     say("mesh", f"(b) {MESH_RANKS} gloo processes on the card, a {mt['shapes']['mesh']} process "
@@ -3325,8 +3510,24 @@ def main() -> int:
             + f", over {f['ms_per_batch']:.2f} ms/batch {100 * f['mfu_wall']:.3f} %; on {smi}")
     say("host", f"phase 15 took {time.perf_counter() - t_host:.1f} s")
 
+    t_entry = time.perf_counter()
+    ent = run_entry(dev)
+    say("entry", f"testing/entry.py (the twin of __graft_entry__.entry()): one fn(*example_args) "
+        f"launched {ent['once']}; 14 results, finite, count {ent['count']}; "
+        f"{ent['ms']:.2f} ms a call over {ENTRY_CALLS} calls (host clock, synchronized); launches "
+        f"{ent['launches']}")
+    say("entry", f"f32, TF32 off, cuda against cpu, {ent['f32_faces']} faces: valid and count equal; "
+        "max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in ent["f32_max_abs_err"].items()))
+    for name, c in ent["kernels"].items():
+        say("entry", f"{name} at the entry's shape {c['shape']}: equal to plain (max abs err "
+            f"{c['max_abs_err']:.3g}); kernel {c['ms'] * 1e3:.1f} us, bound {c['bound_ms'] * 1e3:.3f} "
+            f"us by {c['bound_by']}, plain {c['plain_ms'] * 1e3:.1f} us"
+            + (f", grid_sample {c['library_ms'] * 1e3:.1f} us" if c["library_ms"] is not None else "")
+            + f"; on {smi}")
+    say("entry", f"phase 16 took {time.perf_counter() - t_entry:.1f} s")
+
     counts = {name: sum(ph["launches"][name]
-                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me, hl, sw))
+                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me, hl, sw, ent))
               for name in KERNELS}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -3343,6 +3544,13 @@ def main() -> int:
     # kernel 3 at K=256 and K=1024, all above in a crowd, and 10 % above
     rows[2].update({key: c["ms"] for key, c in greedy.items()})
     rows[2].update({f"nms_call_ms_k{k}": c["call_ms"] for k, c in shares.items()})
+    # kernels 2 and 3 at the entry's shapes (phase 16), with phase 16's launches
+    for row in rows:
+        if row["name"] in ent["kernels"]:
+            c = ent["kernels"][row["name"]]
+            row["entry"] = {"shape": c["shape"], "launches": ent["launches"][row["name"]],
+                            **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}), flush=True)

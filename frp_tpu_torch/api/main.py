@@ -10,9 +10,10 @@ the root, status and debug routes and the camera, face, federated,
 deepfake, alerts, snapshot, async-task, dashboard and frontend routes, in
 the JAX order. ``--mesh auto`` (or ``FRP_MESH=auto``) brings up
 ``torch.distributed`` from the environment when one is configured and, with
-more than one local card, serves over a mesh of them: the engine splits the
-scan batch over the cards (its rows must divide their count) and the FL
-combine runs over them (``frp_tpu/api/main.py:207-230``).
+more than one local card, serves over a mesh of them: the engine splits
+every batch over the cards in nearly equal row shards (any size, the
+warmup's B=1 included) and the FL combine runs over them
+(``frp_tpu/api/main.py:207-230``).
 
 One difference from the JAX server: a failed warmup raises. On the card
 the first warmup is where nvcc builds the kernels, and a server that went

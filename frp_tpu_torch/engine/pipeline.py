@@ -23,8 +23,9 @@ frame with validity masks.
 
 Over a single-process mesh (``parallel.make_mesh``) the engine keeps a
 replica on each data position's device and splits every batch into
-contiguous equal row shards, one a position; every stage is frame-local, so
-each position runs its own rows, as the JAX engine's ``P("data")`` batch.
+contiguous, nearly equal row shards (``parallel.mesh.serving_rows``); every
+stage is frame-local, so each position runs its own rows, as the JAX
+engine's ``P("data")`` batch, whatever the batch's size.
 
 ``with_spoof=False`` (both entry points and ``build_stages``) leaves the
 spoof net out and ``fake_prob`` out of the results (its packed column is
@@ -35,6 +36,7 @@ shrinks, as ``jax.image.resize``) before the spoof net.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -42,6 +44,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -79,7 +82,7 @@ from frp_tpu_torch.ops.image import (
 from frp_tpu_torch.ops.matching import gallery_match
 from frp_tpu_torch.ops.nms import nms_padded_batched
 from frp_tpu_torch.ops.quality import assess_quality_batch
-from frp_tpu_torch.parallel.mesh import DATA_AXIS, data_rows
+from frp_tpu_torch.parallel.mesh import DATA_AXIS, serving_rows
 from frp_tpu_torch.utils.fingerprint import weights_fingerprint
 from frp_tpu_torch.utils.logger import get_logger
 
@@ -238,25 +241,34 @@ def build_stages(
     compact_enabled = compact and os.getenv("FRP_EMBED_COMPACT", "1") != "0"
     compact_rung_env = os.getenv("FRP_EMBED_RUNGS")
 
-    def embed_stage(params, crops, valid, scale=1.0):
+    def rungs_of(n: int) -> list[int]:
+        """The compaction rungs of an n-slot batch (the variables as read
+        when the stages were built)."""
+        return embed_compact_rungs(n, enabled=compact_enabled, rung_env=compact_rung_env)
+
+    def embed_stage(params, crops, valid, scale=1.0, rung="count"):
         b, m = crops.shape[0], crops.shape[1]
         n = b * m
         flat = crops.reshape(n, 112, 112, 3)
         vflat = valid.reshape(-1)
-        rungs = embed_compact_rungs(n, enabled=compact_enabled, rung_env=compact_rung_env)
-        # valid-slot compaction: the valid crops, gathered first, run through
-        # the nets in the smallest rung that holds them, and their results
-        # are scattered back. The JAX package picks the rung on the device
-        # (lax.switch); here the host reads the batch's count of valid slots
-        # once and picks it. Past the largest rung the whole batch runs
-        k = None
-        if rungs:
-            nv = int(vflat.sum())
-            k = next((r for r in rungs if nv <= r), None)
-        if k is None:
+        # valid-slot compaction: the first `rung` valid crops, gathered
+        # first, run through the nets and their results are scattered back;
+        # a rung of None runs the whole batch. The JAX package picks the
+        # rung on the device (lax.switch). Here the caller names it:
+        # RecognitionEngine from the counts of earlier batches that have
+        # already reached the host, so that it never waits for the card (a
+        # count past the named rung leaves valid slots out, and the engine
+        # redoes that batch in its fetch). A caller that names none gets the
+        # smallest rung that holds this batch's count, read on the host, a
+        # wait for the card; past the largest rung the whole batch runs
+        if rung == "count":
+            rungs = rungs_of(n)
+            nv = int(vflat.sum()) if rungs else 0
+            rung = next((r for r in rungs if nv <= r), None)
+        if rung is None:
             emb, fake = embed_core(params, flat)
         else:
-            take = torch.argsort((~vflat).to(torch.uint8), stable=True)[:k]
+            take = torch.argsort((~vflat).to(torch.uint8), stable=True)[:rung]
             emb_k, fake_k = embed_core(params, flat[take])
             emb = emb_k.new_zeros((n, emb_k.shape[-1])).index_copy_(0, take, emb_k)
             fake = None if fake_k is None else fake_k.new_zeros((n,)).index_copy_(0, take, fake_k)
@@ -339,6 +351,7 @@ def build_stages(
         "match": match_stage,
         "delta_ingest": delta_ingest_stage,
         "match_pack": match_pack_stage,
+        "rungs": rungs_of,
     }
 
 
@@ -478,6 +491,29 @@ class EngineMetrics:
         }
 
 
+# the landed valid counts a replica keeps for its rung pick, per batch size
+SPECULATION_WINDOW = 4
+# pinned host slots a replica's counts land in, reused in turn: a batch
+# finds this many copies still in flight only when the card is that far
+# behind, and then posts none
+COUNT_SLOTS = 16
+
+
+class Submitted(NamedTuple):
+    """A ``submit*`` handle: a device result a row shard (the packed tensor
+    or the full dict), the batch's rows, whether it is packed, the gallery
+    names it matched against, the host clock at submit, and a shard's
+    ``(valid count, speculated rung, redo)`` where its embed ran at a
+    speculated rung (else None)."""
+
+    outs: list
+    rows: int
+    packed: bool
+    gallery_names: list
+    t_submit: float
+    checks: list
+
+
 def load_any(path: str, ref_tree: dict) -> dict:
     """A weights file as a numpy tree in the JAX layouts: an npz through
     ``load_params``; an ONNX export mapped onto a copy of ``ref_tree`` (the
@@ -513,13 +549,26 @@ class RecognitionEngine:
     metrics; batches are dispatched in call order.
 
     ``mesh`` (a single-process ``parallel.Mesh``, in place of ``device``):
-    one replica (parameters, priors, stages, copy stream, resident delta
-    shard) on each data position's device ``mesh.devices[i, 0]``. Every
-    batch is split into contiguous equal row shards, one a position, and a
-    batch whose rows the data axis does not divide raises a ValueError, as
-    the JAX engine's ``device_put`` does (enrolment's B=1 included). The
-    stages are launched stage by stage across the shards, and a fetch
-    copies each device's results once and joins them in row order.
+    one replica (parameters, priors, stages, copy stream, rung pick,
+    resident delta shard) on each data position's device
+    ``mesh.devices[i, 0]``. Every batch is split into contiguous, nearly
+    equal row shards (``serving_rows``: the first ``B % n_data`` positions
+    take one row more, and a position left without a row launches nothing),
+    so any batch size runs, enrolment's B=1 included; the JAX engine's
+    ``device_put`` refuses a batch the data axis does not divide. The stages
+    are launched stage by stage across the shards, and a fetch copies each
+    device's results once and joins them in row order.
+
+    The embed stage's compaction rung is picked without waiting for the
+    card (the JAX stage's ``lax.switch`` picks it on the device): after
+    detect each replica copies its batch's valid count to pinned host
+    memory without a wait, and the next batch takes the smallest rung that
+    holds the largest of the last ``SPECULATION_WINDOW`` counts that have
+    landed (none yet: the whole batch). The handle keeps the count, and a
+    fetch redoes embed and match for a batch whose count passed its rung,
+    from the crops, detections and gallery views that batch kept, at the
+    rung its count needs (``embed_stats`` counts them). Results equal the
+    uncompacted stage's.
 
     ``with_spoof=False`` builds the stages without the spoof net: results
     carry no ``fake_prob`` (the packed column is zeros) and encode_image's
@@ -594,7 +643,10 @@ class RecognitionEngine:
             # put_payload's uploads run on a stream of their own, so that
             # they overlap the scan's work instead of queueing behind it
             stream = torch.cuda.Stream(d) if d.type == "cuda" else None
-            self._replicas.append({**shared[d], "device": d, "stream": stream})
+            # "spec": the rung pick's counts, {batch slots: {"pending":
+            # (count, event) copies in flight, "slots": their pinned host
+            # memory, "posted": copies made, "seen": landed counts}}
+            self._replicas.append({**shared[d], "device": d, "stream": stream, "spec": {}})
         first = self._replicas[0]
         self.params, self._priors, self._stages = first["params"], first["priors"], first["stages"]
         # device-resident previous I420 batch for delta transfer
@@ -604,6 +656,10 @@ class RecognitionEngine:
         # (enc_id, seq) of the payload the resident batch came from
         self._delta_src: tuple[int, int] | None = None
         self.delta_stats = {"keyframes": 0, "deltas": 0, "desyncs": 0}
+        # shard launches of the compacted embed stage: at a speculated rung,
+        # redone in a fetch (their count passed the rung), or whole (no count
+        # landed yet, or the largest count past every rung)
+        self.embed_stats = {"speculated": 0, "redone": 0, "whole": 0}
         # when a list, each stage boundary appends (stage name, CUDA event)
         # — a per-stage device timeline for measurement runs; None is off
         self.stage_events: list | None = None
@@ -625,10 +681,11 @@ class RecognitionEngine:
         return torch.cat([r.to(self.device) for r in self._resident])
 
     def _rows(self, n: int) -> list[slice]:
-        """The row shard of each data position for an n-row batch."""
+        """The row shard of each data position that gets rows of an n-row
+        batch (``serving_rows``), in position order."""
         if self.mesh is None:
             return [slice(None)]
-        return data_rows(n, self.mesh)
+        return serving_rows(n, self.mesh)
 
     @staticmethod
     def _on(rep: dict):
@@ -822,14 +879,57 @@ class RecognitionEngine:
         return [self._upload(frames[r], device=rep["device"])
                 for r, rep in zip(self._rows(frames.shape[0]), self._replicas)]
 
+    def _speculate(self, rep: dict, valid: torch.Tensor):
+        """(rung, count) for a shard's embed: the smallest rung that holds
+        the largest valid count of the last ``SPECULATION_WINDOW`` batches of
+        this size whose counts have reached the host (None, the whole batch:
+        none has yet, the count passes every rung, or the batch has no
+        rungs), and this batch's valid count on the device, which is then
+        copied to pinned host memory without a wait for the next batch's
+        pick. On the CPU the copy has landed at once."""
+        n = valid.numel()
+        rungs = rep["stages"]["rungs"](n)
+        if not rungs:
+            return None, None
+        count = valid.sum()
+        # the scan and the deepfake service submit from two threads
+        with self._lock:
+            state = rep["spec"].get(n)
+            if state is None:
+                # pinned once: a new pinned block can wait for the card
+                slots = (torch.empty(COUNT_SLOTS, dtype=count.dtype, pin_memory=True)
+                         if count.is_cuda else None)
+                state = rep["spec"][n] = {
+                    "pending": collections.deque(), "slots": slots, "posted": 0,
+                    "seen": collections.deque(maxlen=SPECULATION_WINDOW)}
+            pending, seen = state["pending"], state["seen"]
+            while pending and (pending[0][1] is None or pending[0][1].query()):
+                seen.append(int(pending.popleft()[0]))
+            if not count.is_cuda:
+                pending.append((count, None))
+            elif len(pending) < COUNT_SLOTS:
+                # the slot of the oldest copy, which has landed and been read
+                host = state["slots"][state["posted"] % COUNT_SLOTS]
+                host.copy_(count, non_blocking=True)
+                landed = torch.cuda.Event()
+                landed.record()
+                pending.append((host, landed))
+                state["posted"] += 1
+            want = max(seen) if seen else None
+            rung = None if want is None else next((r for r in rungs if want <= r), None)
+            self.embed_stats["whole" if rung is None else "speculated"] += 1
+        return rung, count
+
     def _run_stages(self, shards: list, tolerance: float, fmt: str = "rgb", packed: bool = True):
-        """Chain the stages over the row shards (one tensor a position),
-        stage by stage across them; returns (a device result a shard, the
-        gallery names snapshot tied to the gallery tensors this batch
-        matched against). A result is the packed [b, M, 22] tensor, or with
-        packed=False the full dict (embeddings and top-k included)."""
-        reps = self._replicas
+        """Chain the stages over the row shards (one tensor a position that
+        gets rows), stage by stage across them; returns (a device result a
+        shard, the gallery names snapshot tied to the gallery tensors this
+        batch matched against, a shard's ``Submitted.checks`` entry). A
+        result is the packed [b, M, 22] tensor, or with packed=False the
+        full dict (embeddings and top-k included)."""
+        reps = self._replicas[: len(shards)]
         views, gal_names = self.gallery.device_views([r["device"] for r in reps])
+        tol, scale = float(tolerance), self.distance_scale
 
         def each(fn):
             """fn(k, replica) for every shard k, on its replica's device."""
@@ -846,21 +946,34 @@ class RecognitionEngine:
         dets = each(lambda k, r: r["stages"]["detect"](r["params"]["detector"], frames[k],
                                                        r["priors"]))
         self._mark("detect")
+        picks = each(lambda k, r: self._speculate(r, dets[k]["valid"]))
         cropped = each(lambda k, r: r["stages"]["crop"](frames[k], dets[k]))
         self._mark("crop")
-        emb = each(lambda k, r: r["stages"]["embed"](r["params"], cropped[k]["crops"],
-                                                     dets[k]["valid"], self.distance_scale))
+
+        def embed(k, r, rung):
+            return r["stages"]["embed"](r["params"], cropped[k]["crops"], dets[k]["valid"],
+                                        scale, rung=rung)
+
+        def match(k, r, e):
+            if packed:
+                return r["stages"]["match_pack"](dets[k], cropped[k], e, *views[k], tol)
+            m = r["stages"]["match"](e["embeddings_flat"], dets[k]["valid"], *views[k], tol)
+            return full_tree(dets[k], cropped[k], e, m)
+
+        def redo(k, r, nv):
+            """Embed and match again at the rung that holds nv valid slots."""
+            rung = next((x for x in r["stages"]["rungs"](dets[k]["valid"].numel()) if nv <= x), None)
+            with self._on(r):
+                return match(k, r, embed(k, r, rung))
+
+        emb = each(lambda k, r: embed(k, r, picks[k][0]))
         self._mark("embed")
-        tol = float(tolerance)
-        if packed:
-            out = each(lambda k, r: r["stages"]["match_pack"](dets[k], cropped[k], emb[k],
-                                                              *views[k], tol))
-            self._mark("match_pack")
-            return out, gal_names
-        matched = each(lambda k, r: r["stages"]["match"](emb[k]["embeddings_flat"],
-                                                         dets[k]["valid"], *views[k], tol))
-        self._mark("match")
-        return [full_tree(*parts) for parts in zip(dets, cropped, emb, matched)], gal_names
+        out = each(lambda k, r: match(k, r, emb[k]))
+        self._mark("match_pack" if packed else "match")
+        checks = [None if rung is None else
+                  (count, rung, lambda nv, k=k, r=r: redo(k, r, nv))
+                  for k, (r, (rung, count)) in enumerate(zip(reps, picks))]
+        return out, gal_names, checks
 
     def _record(self, b: int, count: np.ndarray, seconds: float) -> None:
         with self._lock:
@@ -883,8 +996,9 @@ class RecognitionEngine:
             frames = frames[None]
         b = frames.shape[0]
         t0 = time.perf_counter()
-        outs, gal_names = self._run_stages(self._frames(frames), tolerance, fmt, packed=False)
-        out = self._host_results([outs])[0]
+        outs, gal_names, checks = self._run_stages(self._frames(frames), tolerance, fmt,
+                                                   packed=False)
+        out = self._host_results([outs], [checks])[0]
         out["gallery_names"] = gal_names
         dt = time.perf_counter() - t0
         if record_metrics:
@@ -946,8 +1060,7 @@ class RecognitionEngine:
         frames = np.ascontiguousarray(frames, dtype=np.uint8)
         if frames.ndim == 3 and fmt == "rgb":
             frames = frames[None]
-        outs, gal_names = self._run_stages(self._frames(frames), tolerance, fmt, packed)
-        return outs, frames.shape[0], packed, gal_names, time.perf_counter()
+        return self._submitted(self._frames(frames), tolerance, fmt, packed)
 
     @torch.no_grad()
     def submit_encoded(self, enc, tolerance: float | None = None, packed: bool = True):
@@ -970,8 +1083,7 @@ class RecognitionEngine:
             self._resident = shards
             if tag is not None:
                 self._delta_src = tag
-            outs, gal_names = self._run_stages(shards, tolerance, "yuv420", packed)
-            return outs, sum(int(x.shape[0]) for x in shards), packed, gal_names, time.perf_counter()
+            return self._submitted(shards, tolerance, "yuv420", packed)
         _, idx, blocks = enc
         if self._resident is None:
             raise RuntimeError(
@@ -1002,8 +1114,12 @@ class RecognitionEngine:
         self._resident = new
         if tag is not None:
             self._delta_src = tag
-        outs, gal_names = self._run_stages(rgb, tolerance, "rgb", packed)
-        return outs, sum(int(x.shape[0]) for x in rgb), packed, gal_names, time.perf_counter()
+        return self._submitted(rgb, tolerance, "rgb", packed)
+
+    def _submitted(self, shards: list, tolerance: float, fmt: str, packed: bool) -> Submitted:
+        outs, gal_names, checks = self._run_stages(shards, tolerance, fmt, packed)
+        return Submitted(outs, sum(int(x.shape[0]) for x in shards), packed, gal_names,
+                         time.perf_counter(), checks)
 
     @torch.no_grad()
     def put_payload(self, enc):
@@ -1023,7 +1139,7 @@ class RecognitionEngine:
 
         def put(x, dtype, copy=False):
             shards = self._shards(x, dtype, copy, side=True)
-            return shards[0] if len(shards) == 1 else shards
+            return shards[0] if len(self._replicas) == 1 else shards
 
         if enc[0] == "raw":
             data = ("raw", put(enc[1], np.uint8, copy=True))
@@ -1065,43 +1181,69 @@ class RecognitionEngine:
         """Wait for a submit() handle and return host-side results: the
         unpacked [B, M, 22] layout, or with packed=False every output as a
         numpy array; both carry ``gallery_names``. One device-to-host copy
-        either way."""
+        either way, and a second for a batch whose valid count passed its
+        speculated rung (redone first)."""
         return self.fetch_many([handle])[0]
 
     @torch.no_grad()
     def fetch_many(self, handles: list) -> list:
         """Fetch a group of submit() handles, packed or not, with ONE
-        device-to-host copy (``to_host``). Returns the host-side result dicts
-        in submission order."""
+        device-to-host copy (``to_host``), and one more for the batches of
+        the group whose valid count passed their speculated rung: those are
+        redone on the device, from what their handles kept, and copied
+        together. Returns the host-side result dicts in submission order."""
         if not handles:
             return []
-        results = self._host_results([outs for outs, *_ in handles])
+        results = self._host_results([h.outs for h in handles], [h.checks for h in handles])
         now = time.perf_counter()
-        for out, (_, b, _, gal_names, t_submit) in zip(results, handles):
-            out["gallery_names"] = gal_names
-            self._record(b, out["count"], max(0.0, now - t_submit))
+        for out, h in zip(results, handles):
+            out["gallery_names"] = h.gallery_names
+            self._record(h.rows, out["count"], max(0.0, now - h.t_submit))
         return results
 
-    def _host_results(self, batches: list) -> list:
-        """Device results (a list of shard results a batch: packed tensors
-        or full dicts) -> host dicts in batch order. Each device's leaves are
-        joined and copied to the host once (``to_host``); a batch's shards
-        are then joined in row order."""
+    def _copy_leaves(self, items: list) -> list:
+        """[(shard position, [tensor, ...]), ...] -> the same lists as host
+        arrays, with one ``to_host`` copy a device."""
         by_device: dict = {}
-        for outs in batches:
-            for k, o in enumerate(outs):
-                leaves = [o] if isinstance(o, torch.Tensor) else list(o.values())
-                by_device.setdefault(self._replicas[k]["device"], []).extend(leaves)
+        for k, ts in items:
+            by_device.setdefault(self._replicas[k]["device"], []).extend(ts)
         host = {d: iter(to_host(ts)) for d, ts in by_device.items()}
+        return [[next(host[self._replicas[k]["device"]]) for _ in ts] for k, ts in items]
+
+    def _host_results(self, batches: list, checks: list) -> list:
+        """Device results (a list of shard results a batch: packed tensors
+        or full dicts) and their ``Submitted.checks`` -> host dicts in batch
+        order. Each device's leaves, with the valid counts of the shards run
+        at a speculated rung, are copied to the host at once; a shard whose
+        count passed its rung is redone and copied again; a batch's shards
+        are then joined in row order."""
+
+        def leaves(o):
+            return [o] if isinstance(o, torch.Tensor) else list(o.values())
+
+        items = [(k, leaves(o) + ([chk[0]] if chk else []))
+                 for outs, cs in zip(batches, checks) for k, (o, chk) in enumerate(zip(outs, cs))]
+        got = iter(self._copy_leaves(items))
+        parts, redone = [], []
+        for b, (outs, cs) in enumerate(zip(batches, checks)):
+            parts.append([])
+            for k, chk in enumerate(cs):
+                arrays = next(got)
+                if chk:
+                    nv = int(arrays.pop())
+                    if nv > chk[1]:
+                        redone.append((b, k, chk[2](nv)))
+                parts[b].append(arrays)
+        if redone:
+            with self._lock:
+                self.embed_stats["redone"] += len(redone)
+            again = self._copy_leaves([(k, leaves(o)) for _, k, o in redone])
+            for (b, k, _), arrays in zip(redone, again):
+                parts[b][k] = arrays
         results = []
-        for outs in batches:
-            parts = []
-            for k, o in enumerate(outs):
-                it = host[self._replicas[k]["device"]]
-                n = 1 if isinstance(o, torch.Tensor) else len(o)
-                parts.append([next(it) for _ in range(n)])
-            arrays = [p[0] if len(parts) == 1 else np.concatenate(p, axis=0)
-                      for p in zip(*parts)]
+        for outs, shards in zip(batches, parts):
+            arrays = [p[0] if len(shards) == 1 else np.concatenate(p, axis=0)
+                      for p in zip(*shards)]
             if isinstance(outs[0], torch.Tensor):
                 results.append(unpack_packed(arrays[0]))
             else:

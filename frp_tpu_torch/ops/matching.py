@@ -34,7 +34,9 @@ def gallery_match(
     [N]. Returns dict distances [B, N], best_idx [B] int32, best_distance
     [B], is_match [B], topk_idx [B, K] int32, topk_distance [B, K]."""
     dist = pairwise_euclidean(queries, gallery)
-    dist = torch.where(gallery_valid[None, :], dist, dist.new_tensor(1e6))
+    # a Python scalar, not a new tensor: a tensor made from a host value is
+    # copied to the card, and that copy waits for it
+    dist = torch.where(gallery_valid[None, :], dist, 1e6)
     k = min(top_k, gallery.shape[0])
     neg_top, top_idx = _top_k(-dist, k)
     top_idx = top_idx.to(torch.int32)

@@ -258,6 +258,21 @@ def data_rows(n: int, mesh: Mesh, what: str = "batch") -> list[slice]:
     return [slice(i * k, (i + 1) * k) for i in range(n_data)]
 
 
+def serving_rows(n: int, mesh: Mesh) -> list[slice]:
+    """The serving engine's split of an n-row batch over the data axis:
+    contiguous, nearly equal row slices, the first ``n % n_data`` one row
+    longer. Only positions that get a row are listed, so a batch of fewer
+    rows than positions runs on the first ones (one empty slice for n = 0).
+    The trainers and FedAvg keep ``data_rows``."""
+    k, extra = divmod(n, mesh.shape[DATA_AXIS])
+    out, at = [], 0
+    for i in range(min(n, mesh.shape[DATA_AXIS])):
+        size = k + (i < extra)
+        out.append(slice(at, at + size))
+        at += size
+    return out or [slice(0, 0)]
+
+
 def model_columns(n: int, mesh: Mesh) -> list[slice]:
     """Contiguous equal column slices of n columns, one for each model
     position (JAX's ``model_sharding``)."""

@@ -11,15 +11,21 @@ each trainer of its spec over ``make_global_mesh``, takes one step on the
 spec's global batch and returns, on rank 0, the metrics and the state as
 flat numpy arrays in the JAX package's layouts (``trainer_arrays``), the
 column-split classifier and its momentum gathered whole.
+``counted_collectives`` counts the collective calls a block makes by the
+size of their group, and ``one_rank_groups`` builds trainers as the port
+did before it dropped the groups of one rank (the reference that the
+tests hold today's step to).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import tempfile
 import time
 import traceback
+import types
 from queue import Empty
 
 import torch
@@ -128,6 +134,65 @@ def trainer_arrays(tr, kind: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def counted_collectives():
+    """Count the ``all_reduce`` and ``broadcast`` calls made inside (the
+    port's only collectives), by the size of their group: yields {ranks in
+    the group: calls}. The port passes a group by keyword."""
+    import torch.distributed as dist
+
+    calls: dict = {}
+    real = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+
+    def counting(fn):
+        def call(tensor, *args, **kwargs):
+            n = dist.get_world_size(kwargs.get("group"))
+            calls[n] = calls.get(n, 0) + 1
+            return fn(tensor, *args, **kwargs)
+        return call
+
+    for name, fn in real.items():
+        setattr(dist, name, counting(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+@contextlib.contextmanager
+def one_rank_groups():
+    """Trainers built inside take the collective path over every axis of a
+    process mesh, a group of one rank included, and average their
+    gradients by the rule of that path: the port's step before it dropped
+    the groups of one."""
+    from frp_tpu_torch.parallel.collectives import average_gradients
+    from frp_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from frp_tpu_torch.train.arcface import MeshSplit
+
+    init = MeshSplit.__init__
+
+    def old_average(self, params, own_columns=False):
+        if self.data is None:
+            return
+        if own_columns or self.n_model == 1:
+            average_gradients(params, self.data, self.n_data)
+        else:
+            average_gradients(params, None, self.n_data * self.n_model)
+
+    def keep(self, mesh=None, what="training"):
+        init(self, mesh, what)
+        if mesh is not None and mesh.is_process_mesh:
+            self.data, self.model = mesh.get_group(DATA_AXIS), mesh.get_group(MODEL_AXIS)
+            self.average_gradients = types.MethodType(old_average, self)
+
+    MeshSplit.__init__ = keep
+    try:
+        yield
+    finally:
+        MeshSplit.__init__ = init
+
+
 def check_checkpoint(tr, path: str, fresh) -> None:
     """Save ``tr``'s state to ``path`` (on every rank: a collective), load
     it into ``fresh()``'s new trainer and assert that every tensor and the
@@ -151,10 +216,12 @@ def train_case(rank: int, world: int, store: str, spec: dict):
     spec's), "mesh" (True; False builds the trainer without one, this
     process alone), "checkpoint" (None; a path: every rank saves the state
     there after the steps and restores it into a new trainer, which must
-    then hold this rank's state exactly)}}): each case's trainer takes its
-    steps on the global batch over the mesh of its model axis. Rank 0 returns
-    {name: {"metrics" (of every step), "ms" (the synchronized host ms of
-    each step), "shapes", and trainer_arrays' arrays}, "seconds":
+    then hold this rank's state exactly), "groups_of_one" (False; True
+    builds the trainer under ``one_rank_groups``)}}): each case's trainer
+    takes its steps on the global batch over the mesh of its model axis.
+    Rank 0 returns {name: {"metrics" (of every step), "ms" (the synchronized
+    host ms of each step), "shapes", "collectives" (the steps' calls by
+    group size, ``counted_collectives``), and trainer_arrays' arrays}, "seconds":
     {"entered" (the clock's time at entry), "start" (s to the group's
     bring-up), name: s}}; the other ranks their "seconds" only. One
     intra-op thread a rank."""
@@ -179,17 +246,19 @@ def train_case(rank: int, world: int, store: str, spec: dict):
                 meshes[n_model] = make_global_mesh(n_model)
             mesh = meshes[n_model]
             kind = case["kind"]
-            if case.get("mesh", True):
-                tr = make_trainer(kind, mesh, **case["kwargs"])
-            else:  # the same trainer in this process alone, for comparison
-                tr = make_trainer(kind, None, device=dev, **case["kwargs"])
+            with one_rank_groups() if case.get("groups_of_one") else contextlib.nullcontext():
+                if case.get("mesh", True):
+                    tr = make_trainer(kind, mesh, **case["kwargs"])
+                else:  # the same trainer in this process alone, for comparison
+                    tr = make_trainer(kind, None, device=dev, **case["kwargs"])
             metrics, ms = [], []
-            for _ in range(case.get("steps", 1)):
-                t = time.perf_counter()
-                metrics.append(tr.train_step(*case["batch"]))
-                if dev.type == "cuda":
-                    torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t) * 1e3)
+            with counted_collectives() as collectives:
+                for _ in range(case.get("steps", 1)):
+                    t = time.perf_counter()
+                    metrics.append(tr.train_step(*case["batch"]))
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
             if case.get("checkpoint"):
                 check_checkpoint(tr, case["checkpoint"],
                                  lambda: make_trainer(kind, mesh, **case["kwargs"]))
@@ -200,7 +269,8 @@ def train_case(rank: int, world: int, store: str, spec: dict):
                 shapes = {"classifier": tuple(w.shape),
                           "momentum": tuple(tr.optimizer.state[w]["momentum_buffer"].shape),
                           "mesh": mesh.shape}
-            out[name] = dict(metrics=metrics, ms=ms, shapes=shapes, **arrays)
+            out[name] = dict(metrics=metrics, ms=ms, shapes=shapes, collectives=collectives,
+                             **arrays)
             out["seconds"][name] = time.perf_counter() - t0
         return out if rank == 0 else {"seconds": out["seconds"]}
     finally:

@@ -31,8 +31,11 @@ averaged over the data group, and the backbone's over every rank (the
 model ranks of a data row see the same rows, so that is the data mean, and
 every replica takes the same update bit for bit: ``MeshSplit``). Loss and
 accuracy are the global
-batch's. A single-process mesh of several positions raises: torch's
-collectives join processes, so start one process a position.
+batch's. An axis of one position has no group and takes no collective: its
+BN takes the rank's own rows, its argmax is the one-card one, and a mesh of
+one rank steps as one card. A single-process mesh of several positions
+raises: torch's collectives join processes, so start one process a
+position.
 """
 
 from __future__ import annotations
@@ -59,8 +62,11 @@ from frp_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, data_rows, model_
 class MeshSplit:
     """A trainer's place in its mesh: this process's data and model
     positions and the process groups of its mesh column (``data``) and row
-    (``model``). With no mesh, or a single-process mesh of one position, one
-    position and no groups: the one-card step."""
+    (``model``). A group of one rank is None, so no collective runs over it
+    (a collective over one rank is the identity, and costs its launch and
+    the backend's call). With no mesh, a single-process mesh of one
+    position or a process mesh of one rank: no groups, the one-card
+    step."""
 
     def __init__(self, mesh=None, what: str = "training"):
         self.mesh = mesh
@@ -77,12 +83,15 @@ class MeshSplit:
                     "FRP_COORDINATOR, FRP_NUM_PROCESSES and FRP_PROCESS_ID), call "
                     "parallel.distributed_initialize() and pass parallel.make_global_mesh()")
             return
-        # a process mesh takes the collective path whatever its axes' sizes
-        # (a one-rank group reduces through its backend too)
         self.n_data, self.n_model = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
         self.i, self.j = mesh.position
-        self.data = mesh.get_group(DATA_AXIS)
-        self.model = mesh.get_group(MODEL_AXIS)
+        self.data = mesh.get_group(DATA_AXIS) if self.n_data > 1 else None
+        self.model = mesh.get_group(MODEL_AXIS) if self.n_model > 1 else None
+
+    @property
+    def alone(self) -> bool:
+        """No group on either axis: the step is one card's."""
+        return self.data is None and self.model is None
 
     def rows(self, x):
         """This data position's rows of a global batch (array or tensor)."""
@@ -102,11 +111,10 @@ class MeshSplit:
         conv's weight gradient is summed in no fixed order, so each model
         rank's own would differ in its last bits and the replicas would
         drift apart). A model rank's ``own_columns`` are averaged over its
-        data group."""
-        if self.data is None:
-            return
-        if own_columns or self.n_model == 1:
-            average_gradients(params, self.data, self.n_data)
+        data group. A mesh of one rank averages nothing."""
+        if own_columns or self.model is None:
+            if self.data is not None:
+                average_gradients(params, self.data, self.n_data)
         else:
             average_gradients(params, None, self.n_data * self.n_model)
 
@@ -114,7 +122,7 @@ class MeshSplit:
         """On a process mesh, mark a trainer state with the mesh and the
         parameters split by columns over its model axis, for the
         checkpoint's gather and rank-0 write (``train/checkpoint.py``)."""
-        if self.data is not None:
+        if self.mesh is not None and self.mesh.is_process_mesh:
             state.update(mesh=self.mesh, model_columns=model_columns)
         return state
 
@@ -176,14 +184,20 @@ def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, col_offset
     a model group (this rank's first column is ``col_offset``): the row max
     and the normaliser's sum over the group, the label's logit from the
     rank that holds it. Every rank gets the same loss; the gradient reaches
-    each rank's own columns."""
+    each rank's own columns. ``group`` None (a model axis of one): the same
+    arithmetic on this rank's columns alone, with no collective, which
+    rounds as the collective path does (``F.cross_entropy`` rounds the
+    logits' gradient otherwise, by some 1e-8)."""
     with torch.no_grad():
         m = logits.max(dim=-1).values
-        torch.distributed.all_reduce(m, op=torch.distributed.ReduceOp.MAX, group=group)
-    total = reduce_sum_forward(torch.exp(logits - m[:, None]).sum(dim=-1), group)
+        if group is not None:
+            torch.distributed.all_reduce(m, op=torch.distributed.ReduceOp.MAX, group=group)
+    total = torch.exp(logits - m[:, None]).sum(dim=-1)
     col = col_offset + torch.arange(logits.shape[1], device=logits.device)
     mine = (labels.long()[:, None] == col[None, :]).to(logits.dtype)
-    target = reduce_sum_forward((logits * mine).sum(dim=-1), group)
+    target = (logits * mine).sum(dim=-1)
+    if group is not None:
+        total, target = reduce_sum_forward(total, group), reduce_sum_forward(target, group)
     return (torch.log(total) + m - target).mean()
 
 
@@ -304,7 +318,7 @@ def make_train_step(
             emb = reduce_sum_backward(emb, split.model)
         logits = arcface_logits(emb, w, labels, margin, scale,
                                 num_real_classes=num_real_classes, col_offset=offset)
-        if split.model is None:
+        if split.alone:
             loss = F.cross_entropy(logits, labels.long())
         else:
             loss = sharded_cross_entropy(logits, labels, offset, split.model)

@@ -7,8 +7,10 @@ falling; the serving default (bf16) against the CPU engine at bf16; and the
 deepfake service on the card against the CPU; the engine over a mesh of the
 card against the unsharded engine, and the ArcFace step in a one-rank NCCL
 group against one process; ``build_pipeline``'s switches and the engine
-without spoof against the CPU. The kernels have no CPU mode, so these tests are marked ``cuda`` and
-skip where torch.cuda.is_available() is false.
+without spoof against the CPU; the twin of ``__graft_entry__.entry()``; and
+the host syncs of a steady scan batch. The kernels have no CPU mode, so
+these tests are marked ``cuda`` and skip where torch.cuda.is_available() is
+false.
 
 The card machine has no JAX and tests/conftest.py imports it, so run them
 there with:
@@ -373,7 +375,9 @@ def test_accuracy_compaction_on_matches_off(cuda, monkeypatch):
     monkeypatch.setenv("FRP_EMBED_COMPACT", "0")
     off = RecognitionEngine(load_config(**ACCURACY), device=cuda)
     monkeypatch.delenv("FRP_EMBED_COMPACT")
+    on.process_frames(scenes)  # the rung pick reads counts of earlier batches
     want, got = off.process_frames(scenes), on.process_frames(scenes)
+    assert on.embed_stats["speculated"] == 1
     assert 0 < want["count"].sum() <= 64
     for key in ("valid", "count", "best_idx"):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
@@ -492,19 +496,25 @@ def test_deepfake_beside_a_scan_on_the_card(cuda, tmp_path):
     scenes = smoke.render_scenes(8, 640, 0)
     ticks = [smoke.tick_batch(scenes, t) for t in range(6)]
 
-    def scans(stop=None):
+    def scans(stop=None, fetched=None):
+        """All ticks once; with ``stop``, on until it is set and 2 scans are
+        done, setting ``fetched`` at each fetch."""
         enc = DeltaEncoder(block_bytes=128)
         outs = []
-        while not (stop.is_set() if stop else len(outs) == len(ticks)):
+        while not ((stop.is_set() and len(outs) >= 2) if stop else len(outs) == len(ticks)):
             outs.append(eng.fetch(eng.submit_encoded(enc.encode(ticks[len(outs) % len(ticks)]))))
+            if fetched is not None:
+                fetched.set()
         return outs
 
     alone, scans_alone = svc.process_video(path), scans()
     eng.delta_stats.update(keyframes=0, deltas=0, desyncs=0)
-    stop, outs = threading.Event(), []
-    th = threading.Thread(target=lambda: outs.extend(scans(stop)))
+    stop, fetched, outs = threading.Event(), threading.Event(), []
+    th = threading.Thread(target=lambda: outs.extend(scans(stop, fetched)))
     th.start()
     try:
+        # the video starts once the scan has fetched, so the two overlap
+        assert fetched.wait(120), "the scan thread fetched no batch"
         beside = svc.process_video(path)
     finally:
         stop.set()
@@ -619,8 +629,54 @@ def test_engine_over_a_mesh_on_the_card_equals_unsharded(cuda):
 
 @pytest.mark.cuda
 def test_one_nccl_rank_step_equals_one_process_step(cuda):
-    """chip_smoke.py phase 14 (c): a one-rank NCCL group takes the f32
-    ArcFace step through every collective of the mesh path and equals the
-    one-process step within train_parity's bounds."""
+    """chip_smoke.py phase 14 (c): a one-rank NCCL group (a 1 x 1 process
+    mesh, which takes no collective in its step) runs the f32 ArcFace step
+    and equals the one-process step within train_parity's bounds."""
     errs = _smoke().run_nccl_rank(cuda)["held"]["arcface_mobilefacenet"]
     assert errs["loss_rel"] <= 1e-4 and errs["params"] <= 1e-4
+
+
+# --- the entry and the host's syncs ----------------------------------------------
+
+@pytest.mark.cuda
+def test_entry_on_the_card(cuda):
+    """The twin of __graft_entry__.entry() on the card: one call launches the
+    warp and the greedy kernel (K=128) once each and gives the 14 results,
+    finite, at the reference's shapes; at f32 its valid and count equal the
+    CPU's bit for bit and its boxes are within 1e-2 px."""
+    from frp_tpu_torch.testing.entry import entry
+
+    fn, args = entry()
+    warps, greedy = align_cuda.LAUNCHES, nms_cuda.LAUNCHES
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    assert (align_cuda.LAUNCHES - warps, nms_cuda.LAUNCHES - greedy) == (1, 1)
+    assert len(out) == 14 and out["embeddings"].shape == (2, 8, 128)
+    assert out["topk_idx"].shape == (2, 8, 5) and out["count"].min() > 0
+    for key, v in out.items():
+        if v.is_floating_point():
+            assert torch.isfinite(v[out["valid"]]).all(), key
+    (fn, args), (cfn, cargs) = entry(compute_dtype="float32"), entry("cpu", "float32")
+    with torch.no_grad():
+        got, want = fn(*args), cfn(*cargs)
+    for key in ("valid", "count"):
+        np.testing.assert_array_equal(got[key].cpu().numpy(), want[key].numpy(), err_msg=key)
+    np.testing.assert_allclose(got["boxes"].cpu().numpy(), want["boxes"].numpy(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_steady_submit_makes_no_host_sync(cuda):
+    """The default engine's delta scan (128 slots: compaction on), counted by
+    chip_smoke.py's host_syncs on a steady batch: submit_encoded waits for
+    the card 0 times, its fetch at most once (the result's copy)."""
+    smoke = _smoke()
+    scenes = smoke.render_scenes(8, 640, 0)
+    eng = RecognitionEngine(load_config(**smoke.PROFILE), device=cuda)
+    enc = DeltaEncoder(block_bytes=128)
+    for t in range(4):
+        eng.fetch(eng.submit_encoded(enc.encode(smoke.tick_batch(scenes, t))))
+    payload, handle = enc.encode(smoke.tick_batch(scenes, 4)), {}
+    assert smoke.host_syncs(lambda: handle.update(h=eng.submit_encoded(payload))) == 0
+    assert smoke.host_syncs(lambda: eng.fetch(handle["h"])) <= 1
+    assert eng.embed_stats["speculated"] == 4 and eng.embed_stats["redone"] == 0

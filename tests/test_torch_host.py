@@ -206,7 +206,7 @@ def test_port_imports_no_jax_nor_frp_tpu():
         "          'tools.eval_spoof', 'tools.migrate_retinaface_npz', 'tools.demo_server',\n"
         "          'tools.mock_camera_worker', 'testing.onnx_export', 'parallel.mesh',\n"
         "          'parallel.fedavg', 'parallel.collectives', 'testing.dryrun_multichip',\n"
-        "          'testing.ranks'):\n"
+        "          'testing.ranks', 'testing.entry'):\n"
         "    assert 'frp_tpu_torch.' + n in mods, n\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

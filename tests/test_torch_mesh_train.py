@@ -10,6 +10,10 @@ f32.
   step.
 - A 1 x 4 mesh: 6 classes padded to 8 on the model axis of 4, against JAX's
   ``make_mesh(n_data=1, n_model=4)`` step.
+- Axes of one rank: a 2 x 1 mesh's ArcFace step makes no collective call
+  over its model group of one and stays bit for bit the step that made
+  them (``testing/ranks.py::one_rank_groups``); a 1 x 1 mesh makes none at
+  all and steps as one process.
 - chip_smoke.py's phase 14 rehearsed on the CPU at a tiny size.
 
 Tolerances, the one-process trainers' (``tests/test_torch_train.py``,
@@ -229,6 +233,37 @@ def test_data_parallel_step_equals_one_process_step(runs, kind):
     for k in want:
         np.testing.assert_allclose(g[k], want[k], rtol=1e-4, err_msg=k)
     _assert_adamw_step(got, trainer_arrays(tr, kind))
+
+
+# --- axes of one rank -----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def one_rank_axes():
+    """Rank 0's results of a 2 x 1 mesh (today's step, and the step that
+    keeps the groups of one) and of a 1 x 1 mesh, on one batch."""
+    batch = _crops(11, 8, 4)
+    two = spawn_ranks(2, train_case, {"device": "cpu", "n_model": 1, "cases": {
+        "today": _arc(4, batch), "groups_of_one": {**_arc(4, batch), "groups_of_one": True}}})[0]
+    one = spawn_ranks(1, train_case, {"device": "cpu", "cases": {"arcface": _arc(4, batch)}})[0]
+    return two, one["arcface"], batch
+
+
+def test_a_model_group_of_one_takes_no_collective_and_keeps_the_step(one_rank_axes):
+    two, _, _ = one_rank_axes
+    got, old = two["today"], two["groups_of_one"]
+    assert old["collectives"].get(1, 0) > 0  # the model group's, before
+    assert set(got["collectives"]) == {2} and got["collectives"][2] > 0  # the data group's
+    assert got["metrics"] == old["metrics"]
+    for key in ("params", "momentum_buffer"):
+        assert got[key].keys() == old[key].keys()
+        for k, w in old[key].items():
+            np.testing.assert_array_equal(got[key][k], w, err_msg=f"{key} {k}")
+
+
+def test_a_one_rank_mesh_steps_as_one_process(one_rank_axes):
+    _, got, batch = one_rank_axes
+    assert got["collectives"] == {} and got["shapes"]["mesh"] == {"data": 1, "model": 1}
+    _assert_arcface(got, *_one_process_step(4, batch))
 
 
 # --- chip_smoke.py phase 14, rehearsed on the CPU ----------------------------

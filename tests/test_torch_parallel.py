@@ -324,21 +324,105 @@ def test_engine_over_a_mesh_full_tree_and_pipelined_calls(meshed):
     assert both[1]["embeddings"].shape == (4, 4, 128)
 
 
-def test_batch_rows_must_divide_the_data_axis_in_both_packages(meshed):
+def _assert_faces_equal(got: list, want: list) -> None:
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["box"], w["box"], rtol=0, atol=1e-2)
+        np.testing.assert_allclose(g["embedding"], w["embedding"], rtol=0, atol=1e-4)
+        assert g["score"] == pytest.approx(w["score"], abs=1e-4)
+        assert g["fake_prob"] == pytest.approx(w["fake_prob"], abs=1e-3)
+
+
+def test_mesh_engine_takes_batches_the_data_axis_does_not_divide(meshed):
     """JAX's device_put refuses a P("data") batch whose rows the data axis
-    does not divide: enrolment's B=1 and the CCTV sweep's B=3 (ROADMAP
-    Queue 3). The port raises alike."""
-    scenes, _, _, engines = meshed
+    does not divide: enrolment's B=1 and the CCTV sweep's B=3 (the
+    reference's fault, left as it is). The port splits such a batch into
+    nearly equal row shards, and its results equal the unsharded engine's;
+    an engine still takes a device or a mesh, not both."""
+    scenes, _, one, engines = meshed
     jeng, teng = engines[2]
-    for eng in (jeng, teng):
-        with pytest.raises(ValueError):
-            eng.encode_image(scenes[0])
-        with pytest.raises(ValueError):
-            eng.process_frames(scenes[:3])
-    with pytest.raises(ValueError, match="3 rows does not divide the mesh's data axis of 2"):
-        teng.submit(scenes[:3])
+    with pytest.raises(ValueError):
+        jeng.encode_image(scenes[0])
+    with pytest.raises(ValueError):
+        jeng.process_frames(scenes[:3])
+    _assert_faces_equal(teng.encode_image(scenes[0]), one.encode_image(scenes[0]))
+    _assert_like_jax(teng.process_frames(scenes[:3]), one.process_frames(scenes[:3]))
+    got = teng.fetch(teng.submit(scenes[:3]))
+    _assert_like_jax(got, one.fetch(one.submit(scenes[:3])))
+    assert got["count"].sum() == 3
     with pytest.raises(ValueError, match="not both"):
         RecognitionEngine(load_config(**KW), device="cpu", mesh=teng.mesh)
+
+
+def test_serving_rows_split_nearly_equal():
+    m4 = tmesh.make_mesh(n_data=4, devices=["cpu"] * 4)
+    assert tmesh.serving_rows(5, m4) == [slice(0, 2), slice(2, 3), slice(3, 4), slice(4, 5)]
+    assert tmesh.serving_rows(3, m4) == [slice(0, 1), slice(1, 2), slice(2, 3)]
+    assert tmesh.serving_rows(8, m4) == tmesh.data_rows(8, m4)
+    assert tmesh.serving_rows(0, m4) == [slice(0, 0)]
+    with pytest.raises(ValueError):  # the trainers' and FedAvg's split keeps JAX's rule
+        tmesh.data_rows(5, m4)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("b", [1, 3, 5])
+def test_mesh_engine_on_any_batch_equals_the_unsharded_engine(meshed, n, b):
+    """B = 1, 3, 5 over 2 and 4 positions (5 = the four scenes and the first
+    again): process_frames, encode_image, submit / fetch and a delta stream
+    through submit_encoded, whose resident batch keeps the split, and
+    precompile_delta_rungs, against the engine without a mesh."""
+    scenes, seq, one, engines = meshed
+    teng = engines[n][1]
+
+    def rows(x):
+        return np.concatenate([x, x])[:b]
+
+    frames = rows(scenes)
+    got, want = teng.process_frames(frames), one.process_frames(frames)
+    _assert_like_jax(got, want)
+    np.testing.assert_allclose(got["embeddings"][want["valid"]],
+                               want["embeddings"][want["valid"]], rtol=0, atol=1e-4)
+    _assert_faces_equal(teng.encode_image(frames[-1]), one.encode_image(frames[-1]))
+    _assert_like_jax(teng.fetch(teng.submit(frames)), one.fetch(one.submit(frames)))
+    et, eo = TDeltaEncoder(block_bytes=128), TDeltaEncoder(block_bytes=128)
+    for batch in seq:
+        got = teng.fetch(teng.submit_encoded(et.encode(rows(batch))))
+        _assert_like_jax(got, one.fetch(one.submit_encoded(eo.encode(rows(batch)))))
+        assert got["count"].sum() == b
+        np.testing.assert_array_equal(teng._delta_prev.numpy(), rows(batch))
+    split = tmesh.serving_rows(b, teng.mesh)
+    assert [int(r.shape[0]) for r in teng._resident] == [s.stop - s.start for s in split]
+    assert teng.precompile_delta_rungs() > 0
+    np.testing.assert_array_equal(teng._delta_prev.numpy(), rows(seq[-1]))
+
+
+def test_warmup_and_server_start_over_a_mesh(tmp_path):
+    """The server's start over a 2-position mesh with 3 cameras: warmup(1),
+    the dry scan of a B=3 batch and the delta rungs run, and it serves."""
+    import asyncio
+
+    from frp_tpu_torch.api import main as tmain
+
+    mesh = tmesh.make_mesh(n_data=2, devices=["cpu"] * 2)
+    cfg = load_config(data_dir=str(tmp_path / "data"), log_dir=str(tmp_path / "logs"),
+                      det_size=DET, max_faces_per_frame=4, pre_nms_topk=64, frames_per_batch=3)
+    ctx = AppContext(cfg=cfg, camera_configs=[
+        {"id": i, "name": f"Cam {i}", "geo": (18.5 + i * 0.01, 73.8),
+         "source": "synthetic:128x96"} for i in range(3)], mesh=mesh)
+    ctx.engine.warmup(1)
+
+    async def start():
+        bound = asyncio.get_running_loop().create_future()
+        task = asyncio.create_task(tmain.serve("127.0.0.1", 0, ctx=ctx, ready=bound.set_result))
+        await asyncio.wait({task, bound}, timeout=300, return_when=asyncio.FIRST_COMPLETED)
+        if task.done():
+            task.result()  # the start raised: raise it here
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        return bound.result()
+
+    assert asyncio.run(start())[1] > 0
+    assert ctx.engine.delta_stats["keyframes"] >= 1 and len(ctx.engine._resident) == 2
 
 
 def test_gallery_copies_follow_its_version(meshed):
