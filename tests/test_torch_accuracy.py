@@ -41,6 +41,7 @@ from frp_tpu_torch.engine.batching import DeltaEncoder as TDeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_stages
 from frp_tpu_torch.models.mobilenetv3 import init_mobilenetv3_small
 from frp_tpu_torch.models.params import convert_params
+from tests.test_torch_native import reference_framepack  # noqa: F401  (fixture reuse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -95,6 +96,7 @@ def acc_engines():
     return JEngine(j_load_config(**ACC), seed=0), RecognitionEngine(load_config(**ACC), device="cpu")
 
 
+@pytest.mark.usefixtures("reference_framepack")
 def test_accuracy_delta_stream_matches_jax(acc_engines):
     jeng, teng = acc_engines
     assert teng.weights_loaded["embedder"].endswith("iresnet18.npz")

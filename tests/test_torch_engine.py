@@ -22,6 +22,7 @@ from frp_tpu_torch.engine.batching import DeltaEncoder as TDeltaEncoder
 from frp_tpu_torch.engine.gallery import DeviceGallery
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, unpack_packed
 from frp_tpu_torch.models.iresnet import iresnet_forward
+from tests.test_torch_native import reference_framepack  # noqa: F401  (fixture reuse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DET = 128
@@ -54,6 +55,7 @@ def _stream(n=3, seeds=(3, 8)):
     return seq
 
 
+@pytest.mark.usefixtures("reference_framepack")
 def test_delta_stream_matches_jax_engine(engines):
     jeng, teng = engines
     seq = _stream()

@@ -35,6 +35,7 @@ from frp_tpu_torch.ops import align_cuda, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.anchors import generate_anchors
 from frp_tpu_torch.testing import synthetic as tsyn
 from frp_tpu_torch.utils.fingerprint import weights_fingerprint
+from tests.test_torch_native import reference_framepack  # noqa: F401  (fixture reuse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = ["retinaface_synthetic.npz", "mobilefacenet.npz", "spoof.npz"]
@@ -84,6 +85,7 @@ def _i420_stream(rng, b=2, rows=96, size=128, n=6):
     return seq
 
 
+@pytest.mark.usefixtures("reference_framepack")
 @pytest.mark.parametrize("hinted", [False, True])
 def test_delta_encoder_payloads_equal(hinted):
     seq = _i420_stream(np.random.default_rng(3))

@@ -16,10 +16,18 @@ against the JAX package:
   hypothesis search, the outage repair and the mixed-hints rule; the JAX
   package ghosts on the mixed sequence, its fault, pinned here);
 - chip_smoke.py's phase 15 runs on the CPU at small sizes.
+
+The JAX package's library is loaded from a private build of its own source
+(``reference_framepack``), never from ``native/libframepack.so``: the JAX
+package builds that shared path in place with no lock between processes, and
+a test worker that loads it half-written keeps no library for the rest of its
+life (its fault, pinned here).
 """
 
+import contextlib
 import importlib.util
 import os
+import shutil
 import subprocess
 import sys
 
@@ -42,10 +50,43 @@ SHAPES = [((1080, 1920), 640, 368), ((720, 1280), 640, 368), ((720, 1280), 640, 
           ((123, 77), 128, 128), ((97, 401), 128, 64)]
 
 
+def build_reference_framepack(out_dir):
+    """Builds the JAX package's native/framepack.cpp with its own command
+    (frp_tpu/utils/native.py::_build) into out_dir, under a temporary name
+    renamed into place, so no reader sees a partial file. Returns the path."""
+    path = os.path.join(str(out_dir), "libframepack.so")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", tmp, jnative._SRC_PATH, "-lpthread"],
+                   check=True, capture_output=True, timeout=120)
+    os.replace(tmp, path)
+    return path
+
+
+@contextlib.contextmanager
+def reference_framepack_loaded(out_dir):
+    """The JAX package's loader on a private build in out_dir, loaded afresh;
+    its _LIB_PATH, _lib and _tried are put back as they were on exit."""
+    path = build_reference_framepack(out_dir)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_LIB_PATH", path)
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_tried", False)
+        lib = jnative.get_framepack()
+        assert lib is not None and lib.framepack_version() == 4
+        yield lib
+
+
 @pytest.fixture(scope="module")
-def libs():
+def reference_framepack(tmp_path_factory):
+    """The JAX package's library for a test module that holds the port
+    against it (import it there), whatever state this worker's loader is in."""
+    with reference_framepack_loaded(tmp_path_factory.mktemp("reference_framepack")) as lib:
+        yield lib
+
+
+@pytest.fixture(scope="module")
+def libs(reference_framepack):
     """Both packages' libraries, loaded (this host has g++)."""
-    assert jnative.get_framepack() is not None, "the JAX package's library did not build"
     assert tnative.get_framepack() is not None, "the port's library did not build"
 
 
@@ -101,6 +142,37 @@ def test_processes_building_at_once_share_one_library(tmp_path):
     assert len(lines) == 1
     path, version = lines.pop().split()
     assert version == "4" and os.listdir(tmp_path) == [os.path.basename(path)]
+
+
+def test_a_half_written_reference_library_stays_off_and_the_fixture_recovers(tmp_path, monkeypatch):
+    """The JAX loader finds native/libframepack.so while another process's
+    linker still writes it: a 0-byte file fails to load, and the loader keeps
+    no library for the process's life, also once the file is complete (its
+    fault, pinned here). From that state the fixture's private build loads
+    version 4 of the JAX package's own source, not the port's library, and
+    the loader's state is put back on exit."""
+    lost = tmp_path / "libframepack.so"
+    lost.write_bytes(b"")
+    monkeypatch.setattr(jnative, "_LIB_PATH", str(lost))
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", False)
+    assert jnative.get_framepack() is None and jnative._tried
+    (tmp_path / "linker").mkdir()
+    shutil.copyfile(build_reference_framepack(tmp_path / "linker"), lost)  # the writer finishes
+    assert lost.stat().st_size > 0 and jnative.get_framepack() is None
+    frames = _frames((97, 401), 2, 1)
+    assert jnative.letterbox_i420_batch(frames, 128, rows=64) is None
+    lost_state = (jnative._LIB_PATH, jnative._lib, jnative._tried)
+    (tmp_path / "private").mkdir()
+    with reference_framepack_loaded(tmp_path / "private") as lib:
+        assert jnative.get_framepack() is lib and lib.framepack_version() == 4
+        assert lib._name == jnative._LIB_PATH == str(tmp_path / "private" / "libframepack.so")
+        assert lib._name != tnative.library_path()
+        got = jnative.letterbox_i420_batch(frames, 128, rows=64)
+        want = tnative.letterbox_i420_batch(frames, 128, rows=64)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert (jnative._LIB_PATH, jnative._lib, jnative._tried) == lost_state
+    assert jnative.get_framepack() is None
 
 
 @pytest.mark.parametrize("shape,size,rows", SHAPES)

@@ -46,6 +46,7 @@ from frp_tpu_torch.parallel.fedavg import fedavg_sharded, pad_clients
 from frp_tpu_torch.platform.context import AppContext
 from frp_tpu_torch.platform.federated import FederatedService as TFederated
 from frp_tpu_torch.testing.dryrun_multichip import coordinator_leg
+from tests.test_torch_native import reference_framepack  # noqa: F401  (fixture reuse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DET = 128
@@ -276,6 +277,7 @@ def _assert_like_jax(got: dict, want: dict) -> None:
         np.testing.assert_allclose(got[key][v], want[key][v], rtol=0, atol=atol, err_msg=key)
 
 
+@pytest.mark.usefixtures("reference_framepack")
 @pytest.mark.parametrize("n", [2, 4])
 def test_engine_over_a_mesh_equals_jax_on_a_delta_stream(meshed, n):
     _, seq, one, engines = meshed

@@ -16,6 +16,10 @@
   order, the same tracking records, the engines' boxes within 1e-2 px and
   distances within 1e-4 (the responses round boxes to 0.1 px and distances
   to 1e-4, so those are held to one rounding step more).
+
+The JAX package's native library comes from tests/test_torch_native.py's
+``reference_framepack`` (a private build of its own source), never from its
+racy shared path.
 """
 
 import asyncio
@@ -53,6 +57,7 @@ from frp_tpu_torch.platform.context import AppContext as TContext
 from frp_tpu_torch.platform.state import SyntheticSource as TSource
 from frp_tpu_torch.testing.synthetic import make_identity as t_make_identity
 from tests.fakes import FakeEngine
+from tests.test_torch_native import reference_framepack  # noqa: F401  (fixture reuse)
 
 DET = 128
 KW = dict(det_size=DET, max_faces_per_frame=4, pre_nms_topk=64,
@@ -126,6 +131,7 @@ def _assert_meta_equal(jm, tm):
         assert a.dtype == b.dtype and np.array_equal(a, b), key
 
 
+@pytest.mark.usefixtures("reference_framepack")
 @pytest.mark.parametrize("mode", ["hints", "detector", "no_cv2"])
 def test_scan_batching_and_payloads_bit_equal(mode, monkeypatch):
     if mode == "no_cv2":
@@ -177,6 +183,7 @@ def test_build_batch_and_unmap_results_equal():
 
 @pytest.mark.parametrize("shape,size,rows", [((1080, 1920), 640, 368), ((720, 1280), 640, 640),
                                               ((123, 77), 128, 128), ((97, 401), 128, 64)])
+@pytest.mark.usefixtures("reference_framepack")
 def test_letterbox_i420_equals_native_packer(shape, size, rows):
     from frp_tpu.utils.native import letterbox_i420_batch
 
@@ -189,6 +196,7 @@ def test_letterbox_i420_equals_native_packer(shape, size, rows):
     assert np.float32(scale) == scales[0] and tuple(off) == tuple(offsets[0])
 
 
+@pytest.mark.usefixtures("reference_framepack")
 def test_hintless_cameras_take_the_detectors_bands():
     """A camera with no change hints is diffed by its change detector (the
     port's own framepack library): from the third scan on the cache takes

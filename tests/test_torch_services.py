@@ -864,12 +864,15 @@ def test_deepfake_beside_a_scan_equals_alone(engines, clip):
         ticks.append(tbatch.build_batch_i420({i: np.ascontiguousarray(x[..., ::-1])
                                               for i, x in enumerate(f)}, DET)[0])
 
-    def scan_stream(stop=None):
-        """The ticks' payloads in turn: once round, or until `stop` is set."""
+    def scan_stream(stop=None, fetched=None):
+        """The ticks' payloads in turn: once round, or on until `stop` is set
+        and 2 scans are done, setting `fetched` at each fetch."""
         enc = tbatch.DeltaEncoder(block_bytes=128)
         outs = []
-        while not (stop.is_set() if stop else len(outs) == len(ticks)):
+        while not ((stop.is_set() and len(outs) >= 2) if stop else len(outs) == len(ticks)):
             outs.append(eng.fetch(eng.submit_encoded(enc.encode(ticks[len(outs) % len(ticks)]))))
+            if fetched is not None:
+                fetched.set()
         return outs
 
     svc = TDeepfake(eng, max_frames=8)
@@ -877,19 +880,22 @@ def test_deepfake_beside_a_scan_equals_alone(engines, clip):
     eng.delta_stats.update(keyframes=0, deltas=0, desyncs=0)
     scans_alone = scan_stream()
     eng.delta_stats.update(keyframes=0, deltas=0, desyncs=0)
-    stop, outs, errors = threading.Event(), [], []
+    stop, fetched, outs, errors = threading.Event(), threading.Event(), [], []
 
     def run():
         try:
-            outs.extend(scan_stream(stop))
+            outs.extend(scan_stream(stop, fetched))
         except Exception as e:  # reported below
             errors.append(e)
+            fetched.set()
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
     th = threading.Thread(target=run)
     try:
         th.start()
+        # the video starts once the scan has fetched, so the two overlap
+        assert fetched.wait(120), "the scan thread fetched no batch"
         beside = svc.process_video(clip)
     finally:
         stop.set()
