@@ -217,8 +217,20 @@ Phases, each printed on its own lines, in order:
             1e-2 px. Kernels 2 and 3 on the inputs that call gave them,
             against their plain versions and timed as phase 3 times them.
 
+17. bench    the port's bench entry point: one attempt, ``python -m
+            frp_tpu_torch.bench --once`` as a child process with
+            BENCH_WINDOWS=1 and BENCH_TICKS=2 (8 synthetic 1080p cameras,
+            12 faces a frame, 16 frames a submission, depth 24, groups of 12,
+            a producer and a transfer thread, delta transfer), under a
+            timeout. Its JSON line's fields are printed; it must have found
+            all 192 faces of a batch (or, where the card finds fewer, as many
+            as the port's f32 engine finds in the same batch), held the
+            window's resident batch equal to the producer's last batch bit
+            for bit, and launched kernels 1 and 2 once a batch.
+
 Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9,
-10, 11, 12, 13, 14, 15 (b) and (c) and 16 and read just after. Any failed check raises, so the run exits
+10, 11, 12, 13, 14, 15 (b) and (c) and 16 and read just after; phase 17's
+are the child's own, from its start to its end. Any failed check raises, so the run exits
 non-zero. The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
@@ -250,7 +262,7 @@ from frp_tpu_torch.config import load_config
 from frp_tpu_torch.engine import batching
 from frp_tpu_torch.engine.batching import DeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline, embed_compact_rungs
-from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, nms_cuda
+from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, launches, nms_cuda, reset_launches
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
 from frp_tpu_torch.ops.decode import decode_boxes, decode_landmarks
@@ -261,6 +273,7 @@ from frp_tpu_torch.platform.state import SyntheticSource
 from frp_tpu_torch.testing.payloads import crowd_payload
 from frp_tpu_torch.testing.synthetic import make_scene, write_face_clip
 from frp_tpu_torch.utils.flops import PEAK_FLOPS_BF16, counted_flops, engine_stage_flops, mfu
+from frp_tpu_torch.utils.profiling import busy_ms, gpu_name_and_limit
 
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -278,13 +291,12 @@ WARM = 3  # ticks left out of the steady-state window
 SEED = 0
 ATOL = 1e-3
 
+# each kernel's source and the TPU kernel it replaces; ``launches()`` and
+# ``reset_launches()`` (frp_tpu_torch.ops) read and clear their wrappers' counts
 KERNELS = {
-    "detection_head": (detection_cuda, "frp_tpu_torch/csrc/detection_head.cu",
-                       "frp_tpu/ops/detection_pallas.py:41"),
-    "warp_crops": (align_cuda, "frp_tpu_torch/csrc/warp_crops.cu",
-                   "frp_tpu/ops/align_pallas.py:58"),
-    "greedy_nms": (nms_cuda, "frp_tpu_torch/csrc/greedy_nms.cu",
-                   "frp_tpu/ops/nms_pallas.py:26"),
+    "detection_head": ("frp_tpu_torch/csrc/detection_head.cu", "frp_tpu/ops/detection_pallas.py:41"),
+    "warp_crops": ("frp_tpu_torch/csrc/warp_crops.cu", "frp_tpu/ops/align_pallas.py:58"),
+    "greedy_nms": ("frp_tpu_torch/csrc/greedy_nms.cu", "frp_tpu/ops/nms_pallas.py:26"),
 }
 
 
@@ -372,15 +384,6 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def reset_launches() -> None:
-    for mod, _, _ in KERNELS.values():
-        mod.LAUNCHES = 0
-
-
-def launches() -> dict[str, int]:
-    return {name: mod.LAUNCHES for name, (mod, _, _) in KERNELS.items()}
-
-
 # --- phase 3: each kernel against its plain version --------------------------
 
 HEAD_ARGS = (16, 0.5, 0.4, 0.5, 640.0)  # M, conf, iou, iom thresholds, det size
@@ -416,19 +419,28 @@ def head_payload(dev, crowd: bool, b=FRAMES, det=640, k=256) -> torch.Tensor:
 
 def check_detection_head(dev, crowd: bool = False) -> dict:
     """Kernel 1 at B=8, K=256, M=16 on one of its two inputs."""
-    payload = head_payload(dev, crowd)
+    return hold_head(head_payload(dev, crowd), *HEAD_ARGS)
+
+
+def hold_head(payload: torch.Tensor, *args) -> dict:
+    """Kernel 1 on a payload [B, K, 19] and its arguments (M, conf, iou, iom
+    thresholds, det size) against its plain version (valid slots equal,
+    floats within ATOL), then its median time over 50 launches, its bound
+    and the plain version's time."""
     b, k, _ = payload.shape
-    got = detection_cuda.fused_head_kernel(payload, *HEAD_ARGS)
-    want = detection_cuda.fused_head_plain(payload, *HEAD_ARGS)
+    got = detection_cuda.fused_head_kernel(payload, *args)
+    want = detection_cuda.fused_head_plain(payload, *args)
     torch.cuda.synchronize()
     if not torch.equal(got[..., 15], want[..., 15]):
-        raise AssertionError("detection_head: valid slots differ from the plain version")
+        raise AssertionError(f"detection_head {tuple(payload.shape)}: valid slots differ from "
+                             "the plain version")
     err = max_err(got, want)
     if not err <= ATOL:
-        raise AssertionError(f"detection_head: max abs err {err} > {ATOL}")
-    above = payload[..., 18] >= HEAD_ARGS[1]
-    boxes = decode_boxes(payload[..., 0:4], payload[..., 14:18], HEAD_ARGS[4])
-    meet = torch.triu(overlap_matrix(boxes, 0.4, 0.5) > 0, 1)
+        raise AssertionError(f"detection_head {tuple(payload.shape)}: max abs err {err} > {ATOL}")
+    m, conf, iou, iom, det = args
+    above = payload[..., 18] >= conf
+    boxes = decode_boxes(payload[..., 0:4], payload[..., 14:18], det)
+    meet = torch.triu(overlap_matrix(boxes, iou, iom) > 0, 1)
     # per candidate pair j > i: 19 operations of the effective overlap and one
     # compare; per candidate about 70 of box and landmark decode. This is the
     # function's nominal work: the kernel skips the pairs the greedy pass
@@ -436,11 +448,11 @@ def check_detection_head(dev, crowd: bool = False) -> dict:
     ops = b * k * (k - 1) / 2 * 20 + b * k * 70
     bms, by = bound(payload.numel() * 4 + got.numel() * 4, ops)
     return dict(
-        shape=f"B={b} K={k} M={HEAD_ARGS[0]}, {int(above.sum()) // b} above a frame, "
+        shape=f"B={b} K={k} M={m}, {int(above.sum()) // b} above a frame, "
               f"{100 * float(meet.sum()) / (b * k * (k - 1) / 2):.1f} % of pairs intersect",
         max_abs_err=err,
-        ms=device_ms(lambda: detection_cuda.fused_head_kernel(payload, *HEAD_ARGS)),
-        plain_ms=device_ms(lambda: detection_cuda.fused_head_plain(payload, *HEAD_ARGS), 10, True),
+        ms=device_ms(lambda: detection_cuda.fused_head_kernel(payload, *args)),
+        plain_ms=device_ms(lambda: detection_cuda.fused_head_plain(payload, *args), 10, True),
         bound_ms=bms, bound_by=by, library_ms=None,
     )
 
@@ -1810,38 +1822,6 @@ def arcface_batch(batch: int, seed: int) -> tuple[np.ndarray, np.ndarray, float]
     return np.clip(np.rint(crops), 0, 255).astype(np.uint8), labels, ms
 
 
-def busy_ms(fn, n: int, top: int = 4) -> tuple[float | None, list]:
-    """Device-busy ms a call over n calls of fn from a torch.profiler trace
-    (the union of the card's kernel and copy intervals, device_busy_ms's
-    recipe), and the `top` kernels by device ms a call, with their share of
-    the busy time; (None, []) when the trace holds no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    # the optimizer's record_function ranges appear on the device's timeline
-    # too, spanning its kernels and the gaps between them: not device work
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith("Optimizer.")]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    if not spans:
-        return None, []
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo = busy + hi - lo, a
-        hi = max(hi, b)
-    busy += hi - lo
-    by_name: dict = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return busy / 1e3 / n, [(name[:48], t / 1e3 / n, t / busy) for name, t in ranked]
-
-
 def timed_steps(step, steps: int, warm: int) -> dict:
     """Run step() `steps` times, each between CUDA events and then
     synchronized; the medians after `warm` steps on both clocks."""
@@ -3100,11 +3080,122 @@ def run_entry(dev) -> dict:
                 f32_faces=int(want["valid"].sum()), kernels=kernels)
 
 
-def gpu_name_and_limit() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+# --- phase 17: the bench ---------------------------------------------------------
+
+BENCH_TICKS = 2  # phase 17's attempt: one window of 2-tick submissions
+BENCH_TIMEOUT = 300  # s; the attempt takes 35-62 s on an H100 80GB HBM3 at 700 W
+
+
+def bench_batch() -> tuple[np.ndarray, str]:
+    """The bench's batch with the walking face present, the batch it counts
+    its faces on: [16, 552, 640] I420 at BENCH_TICKS=2, built as the bench
+    builds it, from its seed."""
+    from frp_tpu_torch import bench
+
+    rng = np.random.default_rng(0)
+    bench.gallery_entries(rng, 128)  # the draws before the scene's
+    prod = bench.Producer(bench.Scene(rng), PROFILE["det_size"], BENCH_TICKS, 128)
+    prod.first()
+    batch, fmt, _ = prod.next_ticks()
+    return batch.copy(), fmt
+
+
+def bench_f32_faces(dev) -> int:
+    """The faces the port's f32 engine (TF32 off) finds in the bench's batch
+    with the walking face present."""
+    batch, fmt = bench_batch()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = load_config(**{**PROFILE, "compute_dtype": "float32"}, frames_per_batch=len(batch))
+        eng = RecognitionEngine(cfg, device=dev)
+        return int(eng.fetch(eng.submit(batch, fmt=fmt))["count"].sum())
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def hold_bench_kernels(dev) -> dict:
+    """Kernels 1 and 2 at the bench's shapes: the bench's batch with the
+    walker through the default bf16 engine in this process, at the bench's
+    16 frames a batch, the kernels' inputs recorded as they pass (each
+    launched once); then both kernels on those inputs against their plain
+    versions, timed as phase 3 times them. These launches are a check's and
+    join no count."""
+    batch, fmt = bench_batch()
+    eng = RecognitionEngine(load_config(**PROFILE, frames_per_batch=len(batch)), device=dev)
+    wrapped = {"detection_head": (detection_cuda, "fused_head_kernel"),
+               "warp_crops": (align_cuda, "warp_crops_kernel")}
+    real = {name: getattr(mod, attr) for name, (mod, attr) in wrapped.items()}
+    seen: dict = {}
+
+    def recording(name):
+        def call(*a):
+            seen.setdefault(name, a)
+            return real[name](*a)
+        return call
+
+    for name, (mod, attr) in wrapped.items():
+        setattr(mod, attr, recording(name))
+    reset_launches()
+    try:
+        faces = int(eng.fetch(eng.submit(batch, fmt=fmt))["count"].sum())
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, attr) in wrapped.items():
+            setattr(mod, attr, real[name])
+    once = launches()
+    if once != {"detection_head": 1, "warp_crops": 1, "greedy_nms": 0}:
+        raise AssertionError(f"one bench batch launched {once}")
+    return dict(faces=faces, kernels={"detection_head": hold_head(*seen["detection_head"]),
+                                      "warp_crops": hold_warp(*seen["warp_crops"])})
+
+
+def run_bench(dev) -> dict:
+    """Phase 17: one attempt of the port's bench, ``python -m
+    frp_tpu_torch.bench --once`` as a child with BENCH_WINDOWS=1 and
+    BENCH_TICKS=2 (the other knobs at their defaults), under a timeout. Holds
+    its JSON line: every face of the 16 frames found (12 a frame; where the
+    card finds fewer, as many as the port's f32 engine finds in the same
+    batch), the window's resident batch equal to the producer's last batch
+    bit for bit (the bench checks it against its replay of the window's
+    payloads with DeltaEncoder.apply_host and raises otherwise), and kernels
+    1 and 2 launched once a batch in the child (at least the timed and
+    latency batches), kernel 3 never. The child's counts start at 0 with
+    its process and are read at its end. This process's cached device memory
+    is released first; its context stays, so the child shares the card and
+    its times are a smoke check's, not the standalone bench's."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    env = dict(os.environ, BENCH_WINDOWS="1", BENCH_TICKS=str(BENCH_TICKS))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "frp_tpu_torch.bench", "--once"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the bench attempt exited {res.returncode}: {res.stderr[-2000:]}")
+    line = next((ln for ln in reversed(res.stdout.splitlines()) if ln.startswith("{")), None)
+    if line is None:
+        raise AssertionError(f"the bench attempt printed no JSON: {res.stdout[-1000:]}")
+    out = json.loads(line)
+    d = out["detail"]
+    frames = FRAMES * BENCH_TICKS
+    want = 12 * frames
+    f32 = None
+    if d["faces_per_batch"] != want:
+        f32 = bench_f32_faces(dev)
+        if d["faces_per_batch"] != f32:
+            raise AssertionError(f"the bench found {d['faces_per_batch']} faces in {frames} "
+                                 f"frames, the f32 engine {f32} ({want} rendered)")
+    check = d["resident_check"]
+    if not (d["delta_transfer"] and check and check["windows"] == d["windows_completed"] == 1):
+        raise AssertionError(f"the window's resident batch was not held: {check}")
+    got = d["kernel_launches"]
+    if not (got["detection_head"] == got["warp_crops"]
+            >= d["batches"] + len(d["detection_to_alert_ms"]) and got["greedy_nms"] == 0):
+        raise AssertionError(f"the bench's launches {got} over {d['batches']} timed batches")
+    return dict(out=out, detail=d, launches=got, seconds=seconds, f32_faces=f32, want=want)
 
 
 def main() -> int:
@@ -3112,6 +3203,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
               "an NVIDIA card", file=sys.stderr)
         return 1
+    t_run = time.perf_counter()
     dev = torch.device("cuda")
     device_kind = torch.cuda.get_device_name(0)
     smi = gpu_name_and_limit()
@@ -3526,11 +3618,45 @@ def main() -> int:
             + f"; on {smi}")
     say("entry", f"phase 16 took {time.perf_counter() - t_entry:.1f} s")
 
+    t_bench = time.perf_counter()
+    bn = run_bench(dev)
+    d = bn["detail"]
+    say("bench", f"python -m frp_tpu_torch.bench --once, BENCH_WINDOWS=1 BENCH_TICKS={BENCH_TICKS} "
+        f"(the rest at their defaults: depth {d['pipeline_depth']}, group {d['fetch_group']}), "
+        f"{bn['seconds']:.1f} s: {bn['out']['value']} faces/s ({bn['out']['metric']})")
+    say("bench", f"{d['ms_per_batch']} ms/batch over {d['batches']} batches of "
+        f"{FRAMES * BENCH_TICKS} frames, {d['frames_per_sec']} frames/s; faces a batch "
+        f"{d['faces_per_batch']} of {bn['want']} rendered"
+        + ("" if bn["f32_faces"] is None else f" (the f32 engine: {bn['f32_faces']})")
+        + f"; p50 detection-to-alert {d['p50_detection_to_alert_ms']} ms (samples "
+        f"{d['detection_to_alert_ms']})")
+    say("bench", f"device {d['device_ms_per_batch']} ms/batch (20 stage runs, one sync), busy "
+        f"{d['device_busy_ms_per_batch']} ms (torch.profiler), duty cycle "
+        f"{d['device_duty_cycle']}; host producer {d['host_producer_ms_per_batch']} ms, transfer "
+        f"{d['host_transfer_ms_per_batch']} ms a batch; GFLOP {d['stage_gflops']}; MFU device "
+        f"{d['mfu_device']}, busy {d['mfu_busy']}, serving {d['mfu_serving']} at "
+        f"{d['peak_flops_assumed'] / 1e12:.0f} TFLOP/s")
+    say("bench", f"wire {d['wire_shipped_mb']} of {d['wire_raw_equiv_mb']} MB "
+        f"({d['wire_compression_ratio']}x), keyframes {d['keyframe_batches']}, deltas "
+        f"{d['delta_batches']}; embed rungs {d['embed_compact_rungs']}, embed_stats "
+        f"{d['embed_stats']} (timed {d['embed_stats_timed']}); resident batch equal to the "
+        f"producer's last batch after {d['resident_check']['payloads']} payloads; launches "
+        f"{bn['launches']}; on {d['device']}")
+    bk = hold_bench_kernels(dev)
+    for name, c in bk["kernels"].items():
+        say("bench", f"{name} at the bench's shape {c['shape']} (its batch with the walker through "
+            f"the default engine here, {bk['faces']} faces): equal to plain (max abs err "
+            f"{c['max_abs_err']:.3g}); kernel {c['ms'] * 1e3:.1f} us, bound {c['bound_ms'] * 1e3:.3f} "
+            f"us by {c['bound_by']}, plain {c['plain_ms'] * 1e3:.1f} us"
+            + (f", grid_sample {c['library_ms'] * 1e3:.1f} us" if c["library_ms"] is not None else "")
+            + f"; on {smi}")
+    say("bench", f"phase 17 took {time.perf_counter() - t_bench:.1f} s")
+
     counts = {name: sum(ph["launches"][name]
-                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me, hl, sw, ent))
+                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me, hl, sw, ent, bn))
               for name in KERNELS}
     rows = []
-    for name, (_, source, replaces) in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         c = checks[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3544,13 +3670,16 @@ def main() -> int:
     # kernel 3 at K=256 and K=1024, all above in a crowd, and 10 % above
     rows[2].update({key: c["ms"] for key, c in greedy.items()})
     rows[2].update({f"nms_call_ms_k{k}": c["call_ms"] for k, c in shares.items()})
-    # kernels 2 and 3 at the entry's shapes (phase 16), with phase 16's launches
-    for row in rows:
-        if row["name"] in ent["kernels"]:
-            c = ent["kernels"][row["name"]]
-            row["entry"] = {"shape": c["shape"], "launches": ent["launches"][row["name"]],
+    # kernels 2 and 3 at the entry's shapes (phase 16) and kernels 1 and 2 at
+    # the bench's (phase 17), each with its phase's launches
+    for key, ph, held in (("entry", ent, ent["kernels"]), ("bench", bn, bk["kernels"])):
+        for row in rows:
+            if row["name"] in held:
+                c = held[row["name"]]
+                row[key] = {"shape": c["shape"], "launches": ph["launches"][row["name"]],
                             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")}}
+    say("done", f"the whole run took {time.perf_counter() - t_run:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import threading
 import time
 from collections import defaultdict
@@ -102,3 +103,44 @@ class DeviceTracer:
         """Named region visible in the trace."""
         with torch.profiler.record_function(name):
             yield
+
+
+def busy_ms(fn, n: int, top: int = 4) -> tuple[float | None, list]:
+    """Device-busy ms a call over n calls of fn from a torch.profiler trace
+    (the union of the card's kernel and copy intervals), and the `top`
+    kernels by device ms a call, with their share of the busy time; (None,
+    []) when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # the optimizer's record_function ranges appear on the device's timeline
+    # too, spanning its kernels and the gaps between them: not device work
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("Optimizer.")]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    if not spans:
+        return None, []
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return busy / 1e3 / n, [(name[:48], t / 1e3 / n, t / busy) for name, t in ranked]
+
+
+def gpu_name_and_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (the first card's)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
