@@ -228,9 +228,24 @@ Phases, each printed on its own lines, in order:
             window's resident batch equal to the producer's last batch bit
             for bit, and launched kernels 1 and 2 once a batch.
 
+18. diagnostics the accuracy diagnostics, the twins of
+            tools/diagnose_e2e_gap.py and tools/prototype_flip_tta.py: each
+            tool's main(argv) in this process at iresnet18, 3 identities x 2
+            variants (their defaults 20 x 4 cut; the diagnosis at tier 2,
+            the prototype over tiers 0-3), on the card at f32 (TF32 off),
+            on the card at the default bf16, and on the CPU at f32. Each card
+            run launches kernels 1 and 2 once an engine batch (the diagnosis
+            1, the prototype 8) and kernel 3 never. The f32 card run equals
+            the CPU run in every count (scenes, detected, common, n_same,
+            n_diff), the landmark error within 0.05 px, AUC, EER and
+            medians within 1e-4, and each TPR and FPR exactly unless a pair
+            distance lies within 1e-4 of its threshold (those are printed).
+            Prints each run's wall s, launches and report; the bf16 run is
+            reported beside the f32 one, not held against it.
+
 Every count of kernel launches is set to 0 just before phases 4, 5, 7, 8, 9,
-10, 11, 12, 13, 14, 15 (b) and (c) and 16 and read just after; phase 17's
-are the child's own, from its start to its end. Any failed check raises, so the run exits
+10, 11, 12, 13, 14, 15 (b) and (c) and 16 and each run of phase 18 and read
+just after; phase 17's are the child's own, from its start to its end. Any failed check raises, so the run exits
 non-zero. The line before the last is one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": 1}}. Where torch.cuda.is_available() is false it exits non-zero
@@ -241,6 +256,9 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import contextlib
+import importlib
+import io
 import json
 import os
 import queue
@@ -3198,6 +3216,155 @@ def run_bench(dev) -> dict:
     return dict(out=out, detail=d, launches=got, seconds=seconds, f32_faces=f32, want=want)
 
 
+# --- phase 18: the accuracy diagnostics -------------------------------------------
+
+# the smoke size of both tools (their defaults: 20 identities x 4 variants)
+DIAG_SIZE = ["--arch", "iresnet18", "--identities", "3", "--variants", "2"]
+DIAG_TOOLS = {"diagnose_e2e_gap": ["--tier", "2"], "prototype_flip_tta": []}
+# tests/test_torch_diagnostics.py's tolerances: the landmark error in det-640
+# px; AUC, EER and medians; a TPR or FPR may differ only where a pair
+# distance lies this close to its threshold
+DIAG_LM_TOL = 0.05
+DIAG_TOL = 1e-4
+DIAG_THRESHOLDS = (0.4, 0.6)
+
+
+def diag_batches(name: str, size: list) -> int:
+    """The engine batches (8 scenes a batch) one run of tool `name` submits:
+    the diagnosis once over its scenes, the prototype twice a tier."""
+    scenes = int(size[size.index("--identities") + 1]) * int(size[size.index("--variants") + 1])
+    return -(-scenes // 8) * (1 if name == "diagnose_e2e_gap" else 8)
+
+
+def diag_metric_sets(name: str, report: dict) -> list:
+    """A report's threshold_metrics dicts in the order the tool computes them."""
+    if name == "diagnose_e2e_gap":
+        return [report[k] for k in ("path_a_engine_e2e", "path_c_gt_landmarks_det640",
+                                    "path_b_gt_landmarks_native")]
+    return [report["tiers"][t][leg] for t in ("0", "1", "2", "3") for leg in ("baseline", "flip_avg")]
+
+
+def diag_run(name: str, dev, dtype: str, out_dir: str, size: list = DIAG_SIZE) -> dict:
+    """One in-process run of tool `name`'s main(argv) on `dev` at
+    COMPUTE_DTYPE=`dtype` (f32 with TF32 off): its report, wall s, the
+    kernels' launches from a count of 0, and the pair distances of each
+    pair_distances call. The tool's own printout is kept out of the log."""
+    from frp_tpu_torch.train import pairs
+
+    module = importlib.import_module(f"frp_tpu_torch.tools.{name}")
+    real = pairs.pair_distances
+    dists = []
+
+    def recording(embeddings, labels):
+        same, diff = real(embeddings, labels)
+        dists.append(np.concatenate([same, diff]))
+        return same, diff
+
+    old = os.environ.get("COMPUTE_DTYPE")
+    os.environ["COMPUTE_DTYPE"] = dtype
+    torch.backends.cudnn.allow_tf32 = dtype != "float32"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pairs.pair_distances = recording
+    argv = size + DIAG_TOOLS[name] + ["--device", dev.type,
+                                      "--out", os.path.join(out_dir, f"{name}_{dev.type}_{dtype}.json")]
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = module.main(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        pairs.pair_distances = real
+        if old is None:
+            del os.environ["COMPUTE_DTYPE"]
+        else:
+            os.environ["COMPUTE_DTYPE"] = old
+        torch.backends.cudnn.allow_tf32 = True  # torch's defaults
+    seconds = time.perf_counter() - t0
+    got = launches()
+    want = diag_batches(name, size)
+    if dev.type == "cuda" and got != {"detection_head": want, "warp_crops": want, "greedy_nms": 0}:
+        raise AssertionError(f"{name} at {dtype} launched {got}, expected kernels 1 and 2 "
+                             f"{want} times each and kernel 3 never")
+    sets = diag_metric_sets(name, report)
+    if len(dists) != len(sets) or not all(m["n_same"] > 0 and m["n_diff"] > 0 for m in sets):
+        raise AssertionError(f"{name} at {dtype} on {dev.type}: pair sets {[len(d) for d in dists]}")
+    return dict(report=report, seconds=seconds, launches=got, dists=dists)
+
+
+def hold_diag(name: str, got: dict, want: dict) -> dict:
+    """The f32 card run against the CPU run of the same tool: every integer
+    field equal (scenes, detected, common, n_same, n_diff, ...), the
+    landmark error within DIAG_LM_TOL, TPR and FPR equal unless a pair
+    distance of that set lies within DIAG_TOL of the threshold in either
+    run, the other floats within DIAG_TOL. Returns the largest float error
+    and the rates left unheld by a near-threshold distance."""
+    errs = {"landmark_px": 0.0, "metrics": 0.0}
+    near = []
+
+    def walk(g, w, path):
+        if isinstance(w, dict):
+            if g.keys() != w.keys():
+                raise AssertionError(f"{name}: fields differ at {path}")
+            for k in w:
+                if k != "backend":
+                    walk(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, float) and "landmark_err" in path:
+            errs["landmark_px"] = max(errs["landmark_px"], abs(g - w))
+            if abs(g - w) > DIAG_LM_TOL:
+                raise AssertionError(f"{name}: {path} {g} on the card, {w} on the cpu")
+        elif isinstance(w, float) and "@" not in path:
+            errs["metrics"] = max(errs["metrics"], abs(g - w))
+            if abs(g - w) > DIAG_TOL:
+                raise AssertionError(f"{name}: {path} {g} on the card, {w} on the cpu")
+        elif not isinstance(w, float) and g != w:
+            raise AssertionError(f"{name}: {path} {g} on the card, {w} on the cpu")
+
+    walk(got["report"], want["report"], "")
+    for i, (g, w) in enumerate(zip(diag_metric_sets(name, got["report"]),
+                                   diag_metric_sets(name, want["report"]))):
+        both = np.concatenate([got["dists"][i], want["dists"][i]])
+        for t in DIAG_THRESHOLDS:
+            for k in (f"tpr@{t}", f"fpr@{t}"):
+                if np.abs(both - t).min() <= DIAG_TOL:
+                    near.append((i, k, g[k], w[k]))
+                elif g[k] != w[k]:
+                    raise AssertionError(f"{name}: set {i} {k} {g[k]} on the card, {w[k]} on the cpu")
+    return dict(max_abs_err=errs, near=near)
+
+
+def diag_summary(name: str, report: dict) -> str:
+    """One line of a report: counts, the landmark error, each path's or
+    tier's TPR@0.6 / FPR@0.6 / AUC."""
+    def m(x):
+        return f"TPR@0.6 {x['tpr@0.6']:.4f}, FPR@0.6 {x['fpr@0.6']:.4f}, AUC {x['auc']:.4f}"
+    if name == "diagnose_e2e_gap":
+        lm = report["landmark_err_det640_px"]
+        return (f"detected {report['detected']} of {report['scenes']}; landmark err det-640 px mean "
+                f"{lm['mean']}, median {lm['median']}, p90 {lm['p90']}; A {m(report['path_a_engine_e2e'])}; "
+                f"C {m(report['path_c_gt_landmarks_det640'])}; B {m(report['path_b_gt_landmarks_native'])}")
+    return "; ".join(f"tier {t} common {r['common']} of {r['scenes']} (base {r['detected_base']}, "
+                     f"flipped {r['detected_flipped']}): baseline {m(r['baseline'])} -> flip-avg "
+                     f"{m(r['flip_avg'])}" for t, r in report["tiers"].items())
+
+
+def run_diagnostics(dev, size: list = DIAG_SIZE) -> dict:
+    """Phase 18: each accuracy diagnostic's main(argv) in process on `dev`
+    at f32 (TF32 off) and at the default bf16, then on the CPU at f32; the
+    f32 runs held by hold_diag. Launches are the card runs' sum."""
+    runs, held = {}, {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name in DIAG_TOOLS:
+            for dtype in ("float32", "bfloat16"):
+                runs[(name, dtype)] = diag_run(name, dev, dtype, out_dir, size)
+            runs[(name, "cpu")] = diag_run(name, torch.device("cpu"), "float32", out_dir, size)
+            held[name] = hold_diag(name, runs[(name, "float32")], runs[(name, "cpu")])
+    total = {k: sum(r["launches"][k] for (n, d), r in runs.items() if d != "cpu")
+             for k in KERNELS}
+    return dict(runs=runs, held=held, launches=total, size=size)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -3652,8 +3819,24 @@ def main() -> int:
             + f"; on {smi}")
     say("bench", f"phase 17 took {time.perf_counter() - t_bench:.1f} s")
 
+    t_diag = time.perf_counter()
+    dg = run_diagnostics(dev)
+    for (name, dtype), r in dg["runs"].items():
+        on = "cpu, f32" if dtype == "cpu" else f"cuda, {'f32, TF32 off' if dtype == 'float32' else 'bf16'}"
+        say("diagnostics", f"{name} {' '.join(dg['size'] + DIAG_TOOLS[name])} ({on}): "
+            f"{r['seconds']:.1f} s, launches {r['launches']}; {diag_summary(name, r['report'])}"
+            + ("" if dtype == "cpu" else f"; on {smi}"))
+        say("diagnostics", f"{name} ({on}) report: {json.dumps(r['report'])}")
+    for name, h in dg["held"].items():
+        say("diagnostics", f"{name}: the f32 card run equals the cpu run in every count (detected, "
+            f"common, n_same, n_diff); max abs err landmark {h['max_abs_err']['landmark_px']:.3g} px, "
+            f"AUC, EER and medians {h['max_abs_err']['metrics']:.3g}; rates beside a pair distance "
+            f"within {DIAG_TOL} of 0.4 or 0.6 (not held): {h['near'] or 'none'}")
+    say("diagnostics", f"phase 18 took {time.perf_counter() - t_diag:.1f} s")
+
     counts = {name: sum(ph["launches"][name]
-                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me, hl, sw, ent, bn))
+                        for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me, hl, sw, ent, bn,
+                                   dg))
               for name in KERNELS}
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -3679,6 +3862,9 @@ def main() -> int:
                 row[key] = {"shape": c["shape"], "launches": ph["launches"][row["name"]],
                             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")}}
+    # kernels 1 and 2 in the accuracy diagnostics' card runs (phase 18)
+    for row in rows:
+        row["diagnostics_launches"] = dg["launches"][row["name"]]
     say("done", f"the whole run took {time.perf_counter() - t_run:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
