@@ -27,10 +27,13 @@ Phases, each printed on its own lines, in order:
             frame, then an enrolment with encode_image and one more scan.
             Checks the launch counts, the resident batch against
             DeltaEncoder.apply_host, the detections and the enrolled match;
-            prints frames/s, faces/s and per-stage ms, submit_encoded's host
-            ms, the host syncs of each of 5 steady batches' submit and fetch
-            (torch's sync debug mode) and the embed stage's rung counts
-            (speculated, redone in a fetch, whole).
+            prints frames/s, faces/s, submit_encoded's host ms, the host
+            syncs of each of 5 steady batches' submit and fetch (torch's sync
+            debug mode, and the synchronizing CUDA calls inside the engine's
+            frp.submit_encoded and frp.fetch_many spans), their per-stage
+            device ms (the engine's stage spans under torch.profiler) and the
+            embed stage's rung counts (speculated, redone in a fetch, whole,
+            slots embedded).
 5. nms      an engine with pre_nms_topk=512, whose detect stage goes through
             decode + nms_padded_batched and so launches the greedy kernel.
 6. parity   the engine at f32 (TF32 off) on cuda and on the CPU over 2
@@ -52,10 +55,11 @@ Phases, each printed on its own lines, in order:
             enrolment, with phase 4's checks and numbers. Then the same
             engine built with FRP_EMBED_COMPACT=0 on the same batch: valid,
             count and best_idx bit for bit, embeddings and fake_prob within
-            2e-2; the embed stage's device ms with compaction on and off (two
-            short streams each, in turns), beside its bound (the stage's
+            2e-2; the ms a batch of two short streams each with compaction on
+            and off, in turns, the embed stage's device ms of each stream run
+            again under torch.profiler (its span), beside its bound (the stage's
             matmul and conv FLOPs, as utils/flops.py counts them,
-            over the bf16 peak), and the device-busy ms a batch of a third
+            over the bf16 peak), and the device-busy ms a batch of one more
             stream each from a torch.profiler trace. The same for the default
             profile on phase 4's engine. Last, phase 6's parity for this
             profile at 4 slots a frame.
@@ -80,8 +84,9 @@ Phases, each printed on its own lines, in order:
             tracking records landed in the store and new_alert reached the
             socket, delta_stats shows deltas and no desync, kernels 1 and 2
             launched once a scan. Prints ms a scan on the host clock (and its
-            parts, from the scan's stage timers), device ms a scan and a
-            stage, the delta payload's size, scans/s and frames/s. Then
+            parts, from the scan's stage timers), the delta payload's size,
+            scans/s and frames/s, and the device ms a scan and a stage of 5
+            more (dry) scans under torch.profiler (every thread). Then
             the same cameras through a cuda and a cpu context, both at f32
             (TF32 off), 2 scans each: the same targets and cameras, valid,
             count and best_idx bit for bit, boxes within 1e-2 px. Also the
@@ -100,7 +105,8 @@ Phases, each printed on its own lines, in order:
             equal to the numpy mean bit for bit; the snapshot (200 with an
             ETag, then 304), /app and /dashboard. Prints the video's ms on
             the host clock (read and seek, letterbox, engine), the device ms
-            a chunk, ms a sampled frame, the CCTV sweep's ms, and the ms to
+            a chunk (the video's chunks again, under torch.profiler), ms a
+            sampled frame, the CCTV sweep's ms, and the ms to
             read the sampled frames by seeking with cv2's MJPEG backend and
             the whole clip in order with the default one (the service's
             seeks must give the in-order read's frames bit for bit). Then the
@@ -291,7 +297,7 @@ from frp_tpu_torch.platform.state import SyntheticSource
 from frp_tpu_torch.testing.payloads import crowd_payload
 from frp_tpu_torch.testing.synthetic import make_scene, write_face_clip
 from frp_tpu_torch.utils.flops import PEAK_FLOPS_BF16, counted_flops, engine_stage_flops, mfu
-from frp_tpu_torch.utils.profiling import busy_ms, gpu_name_and_limit
+from frp_tpu_torch.utils.profiling import all_threads, busy_ms, gpu_name_and_limit
 
 # H100 SXM published peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -648,16 +654,63 @@ def nms_call_share(dev, k: int) -> dict:
 
 # --- phases 4 to 7: the engine -----------------------------------------------
 
-def stage_ms(events: list) -> dict[str, float]:
-    """Median device ms of each stage over the ticks of a stage-event list
-    ((name, event) pairs, each tick opening with "start")."""
-    per: dict[str, list[float]] = {}
-    prev = None
-    for name, ev in events:
-        if name != "start" and prev is not None:
-            per.setdefault(name, []).append(prev.elapsed_time(ev))
-        prev = ev
-    return {k: float(np.median(v)) for k, v in per.items()}
+STAGES = ("ingest", "delta_ingest", "detect", "crop", "embed", "match_pack", "match")
+# the CUDA runtime's calls that block the host until the card has caught up
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpy")
+
+
+def span_device_us(ev) -> float:
+    """The device us of the kernels and copies launched inside a host event
+    and its children, each id's once (another host event may carry the id
+    of the op that launched a kernel, and a second copy of its kernels)."""
+    by_id: dict = {}
+    todo = [ev]
+    while todo:
+        e = todo.pop()
+        if e.kernels and e.id not in by_id:
+            by_id[e.id] = sum(k.duration for k in e.kernels)
+        todo.extend(e.cpu_children)
+    return sum(by_id.values())
+
+
+def made_in(ev, name: str) -> bool:
+    """Whether a host event is nested in a span ``name`` and was made on
+    that span's system thread (another thread's runtime call can land in
+    the tree by time)."""
+    p = ev.cpu_parent
+    while p is not None:
+        if p.name == name:
+            return getattr(ev, "device_resource_id", None) == getattr(p, "device_resource_id", None)
+        p = p.cpu_parent
+    return False
+
+
+def program_spans(fn) -> tuple:
+    """fn() under torch.profiler over every thread: (its result, {span
+    name: [device ms of each of the engine's ``frp.*`` spans of that name,
+    in start order]}, {call: the synchronizing CUDA calls nested in the
+    spans ``frp.submit_encoded`` and ``frp.fetch_many``})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **all_threads()) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in prof.events() if e.device_type != cuda]
+    spans: dict[str, list[float]] = {}
+    for e in sorted(host, key=lambda e: e.time_range.start):
+        if e.name.startswith("frp."):
+            spans.setdefault(e.name, []).append(span_device_us(e) / 1e3)
+    syncs = {call: sum(1 for e in host if e.name in SYNC_CALLS and made_in(e, f"frp.{call}"))
+             for call in ("submit_encoded", "fetch_many")}
+    return out, spans, syncs
+
+
+def stage_ms(spans: dict) -> dict[str, float]:
+    """Median device ms of each stage span (``program_spans``)."""
+    return {k: float(np.median(spans[f"frp.{k}"])) for k in STAGES if f"frp.{k}" in spans}
 
 
 def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> dict:
@@ -677,7 +730,6 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
         if t == warm:
             if timed:
                 torch.cuda.synchronize()
-                eng.stage_events = []
             t0, faces = time.perf_counter(), 0
         t_submit = time.perf_counter()
         handle = eng.submit_encoded(payloads[t])
@@ -690,8 +742,6 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
         host = flat.copy() if t == 0 else DeltaEncoder.apply_host(host, payloads[t][1], payloads[t][2])
     elapsed = time.perf_counter() - t0
     steady = ticks + 1 - warm
-    stages = stage_ms(eng.stage_events) if timed else {}
-    eng.stage_events = None
     if not np.array_equal(host, batches[ticks].reshape(len(scenes), -1)):
         raise AssertionError("apply_host did not rebuild the last batch")
     resident = eng._delta_prev.cpu().numpy().reshape(host.shape)
@@ -700,9 +750,11 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
     if not out["valid"].any():
         raise AssertionError("the scan found no face")
     sync_payloads = payloads[ticks + 1 : ticks + 1 + SYNC_BATCHES]
-    syncs = None  # the sync count reads the card's; the CPU runs the batches only
+    # the sync counts and stage spans read the card's; the CPU runs the batches only
+    syncs, span_syncs, stages = None, None, {}
     if timed:
-        syncs = steady_syncs(eng, sync_payloads)
+        syncs, spans, span_syncs = program_spans(lambda: steady_syncs(eng, sync_payloads))
+        stages = stage_ms(spans)
     else:
         for p in sync_payloads:
             eng.fetch(eng.submit_encoded(p))
@@ -731,7 +783,8 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
         faces_per_batch=faces / steady, ms_per_batch=elapsed * 1e3 / steady,
         stage_ms=stages, enrolled_frame=j,
         enrolled_distance=float(after["best_distance"][j][hit].min()),
-        submit_ms=float(np.median(submit_ms)), syncs=syncs, embed=dict(eng.embed_stats),
+        submit_ms=float(np.median(submit_ms)), syncs=syncs, span_syncs=span_syncs,
+        embed=dict(eng.embed_stats),
     )
 
 
@@ -877,19 +930,21 @@ def embed_bound(eng: RecognitionEngine, frames_yuv: np.ndarray, compact: bool) -
 
 
 def stream_ms(eng: RecognitionEngine, payloads: list, warm: int) -> dict:
-    """Median device ms of each stage and ms/batch on the host clock over
-    payloads[warm:], each submitted then fetched."""
+    """ms/batch on the host clock over payloads[warm:], each submitted then
+    fetched; then the same payloads again, payloads[warm:] under
+    torch.profiler, for the median device ms of each stage (``stage_ms``).
+    Runs 2 * len(payloads) batches."""
     faces = 0
     for t, p in enumerate(payloads):
         if t == warm:
             torch.cuda.synchronize()
-            eng.stage_events = []
             t0, faces = time.perf_counter(), 0
         faces += int(eng.fetch(eng.submit_encoded(p))["count"].sum())
     elapsed = time.perf_counter() - t0
-    stages = stage_ms(eng.stage_events)
-    eng.stage_events = None
-    return dict(stage_ms=stages, ms_per_batch=elapsed * 1e3 / (len(payloads) - warm),
+    for p in payloads[:warm]:
+        eng.fetch(eng.submit_encoded(p))
+    _, spans, _ = program_spans(lambda: [eng.fetch(eng.submit_encoded(p)) for p in payloads[warm:]])
+    return dict(stage_ms=stage_ms(spans), ms_per_batch=elapsed * 1e3 / (len(payloads) - warm),
                 faces_per_batch=faces / (len(payloads) - warm))
 
 
@@ -939,7 +994,7 @@ def compaction_runs(dev, scenes: np.ndarray, profile: dict, eng: RecognitionEngi
             per[key].append(stream_ms(e, payloads, warm))
     busy = {key: device_busy_ms(e, payloads, warm) for key, e in (("on", eng), ("off", off))}
     return dict(max_abs_err=errs, faces=int(v.sum()), bound=bounds, busy_ms=busy,
-                batches=(2 * rounds + 2) * len(payloads) + 4,  # + process_frames, bound runs
+                batches=(4 * rounds + 2) * len(payloads) + 4,  # + process_frames, bound runs
                 embed_ms={key: [r["stage_ms"]["embed"] for r in runs] for key, runs in per.items()},
                 stream_ms_per_batch={key: [r["ms_per_batch"] for r in runs] for key, runs in per.items()})
 
@@ -1075,6 +1130,7 @@ def run_pipelined(dev, scenes: np.ndarray, profile: dict, ticks: int, group: int
 PLATFORM_CAMERAS = 8
 PLATFORM_SOURCE = (1920, 1080)  # the bench protocol's 8 x 1080p feeds
 PLATFORM_REQUESTS = 20
+PROFILED_SCANS = 5  # phase 10's dry scans under torch.profiler
 ENROLLED = "camera0_person"
 
 
@@ -1235,20 +1291,6 @@ async def drive_platform(port: int, requests: int, path: str) -> dict:
                 delta=(await http_get(port, "/debug/delta"))[1])
 
 
-def scan_device_ms(events: list) -> list[float]:
-    """Device ms of each scan in a stage-event list: from its "start" event
-    to its last stage boundary."""
-    out, first, last = [], None, None
-    for name, ev in events + [("start", None)]:
-        if name == "start":
-            if first is not None and last is not None:
-                out.append(first.elapsed_time(last))
-            first, last = ev, None
-        else:
-            last = ev
-    return out
-
-
 def run_platform(dev, requests: int = PLATFORM_REQUESTS, **overrides) -> dict:
     """Phase 10: the serving platform on the card at full width (the default
     config; `overrides` of it only for a rehearsal on the CPU)."""
@@ -1275,20 +1317,22 @@ def run_platform(dev, requests: int = PLATFORM_REQUESTS, **overrides) -> dict:
         reset_launches()
         if timed:
             torch.cuda.synchronize()
-            ctx.engine.stage_events = []
         # max_faces=16 (the engine's slots) is not the route's default of 10,
         # so no request takes a cached digest: every GET scans
         run = asyncio.run(drive_platform(port, requests, f"/camera/alerts?max_faces={cfg.max_faces_per_frame}"))
         got = launches()
         ctx.tracking._persist_pool.submit(lambda: None).result()  # the tracker's stores land
-        device = scan_device_ms(ctx.engine.stage_events) if timed else []
-        stage_device = stage_ms(ctx.engine.stage_events) if timed else {}
-        ctx.engine.stage_events = None
         embed = dict(ctx.engine.embed_stats)
-        # one more steady scan, dry, under the sync count: its submit and fetch
         kept = len(fetched), len(seen["payload_bytes"])
-        syncs = (host_syncs(lambda: ctx.run_scan(cfg.face_tolerance, cfg.frame_skip, 10, True))
-                 if timed else None)
+        device, stage_device, syncs = [], {}, None
+        if timed:
+            # more steady scans, dry, under torch.profiler: each scan's device
+            # ms (the kernels and copies of its submit_encoded) and a stage's
+            _, spans, _ = program_spans(lambda: [ctx.run_scan(
+                cfg.face_tolerance, cfg.frame_skip, 10, True) for _ in range(PROFILED_SCANS)])
+            device, stage_device = spans.get("frp.submit_encoded", []), stage_ms(spans)
+            # one more, under the sync count: its submit and fetch
+            syncs = host_syncs(lambda: ctx.run_scan(cfg.face_tolerance, cfg.frame_skip, 10, True))
         del fetched[kept[0]:], seen["payload_bytes"][kept[1]:]
     finally:
         stop()
@@ -1408,9 +1452,8 @@ def post_file(port: int, path: str, name: str, data: bytes, ctype: str) -> tuple
 def instrument_deepfake(svc, eng) -> tuple[dict, callable]:
     """Record the deepfake path's parts on the host clock: "read" (from the
     probe to the classification: probe, seek and decode), "letterbox" (each
-    build_batch_i420), "engine" (each process_frames, which also marks a
-    "start" stage event) and every classify_frames call's frames and
-    results. Returns the record and a function that undoes the wrapping."""
+    build_batch_i420), "engine" (each process_frames) and every
+    classify_frames call's frames and results. Returns the record and a function that undoes the wrapping."""
     rec: dict = {k: [] for k in ("read", "letterbox", "engine", "frames", "results")}
     probe, classify, process = svc.probe_video, svc.classify_frames, eng.process_frames
     letterbox = batching.build_batch_i420
@@ -1435,7 +1478,6 @@ def instrument_deepfake(svc, eng) -> tuple[dict, callable]:
         return out
 
     def process_frames(*args, **kwargs):
-        eng._mark("start")
         t = time.perf_counter()
         out = process(*args, **kwargs)
         rec["engine"].append(time.perf_counter() - t)
@@ -1672,13 +1714,11 @@ def run_services(dev, **overrides) -> dict:
         reset_launches()
         if timed:
             torch.cuda.synchronize()
-            ctx.engine.stage_events = []
         t = time.perf_counter()
         status, video = post_file(port, "/deepfake/detect", "walk.avi", clip_bytes, "video/x-msvideo")
         video_wall = time.perf_counter() - t
         video_launches = launches()
-        events, ctx.engine.stage_events = ctx.engine.stage_events, None
-        chunks = scan_device_ms(events) if timed else []
+        video_chunks = list(rec["frames"])
         parts = {k: float(np.sum(rec[k])) * 1e3 for k in ("read", "letterbox", "engine")}
         n_chunks = len(rec["engine"])
         if status != 200 or video["cached"] or video["frames_sampled"] != n:
@@ -1721,6 +1761,10 @@ def run_services(dev, **overrides) -> dict:
         if timed and got_launches != {"detection_head": want_all, "warp_crops": want_all,
                                       "greedy_nms": 0}:
             raise AssertionError(f"phase 11 launches {got_launches}, expected {want_all} each")
+        chunks = []
+        if timed:  # the video's chunks again under torch.profiler: each one's device ms
+            _, spans, _ = program_spans(lambda: [svc.classify_frames(f) for f in video_chunks])
+            chunks = spans.get("frp.process_frames", [])
 
         # federated averaging: two clients, then the aggregate
         rng = np.random.default_rng(SEED)
@@ -2311,7 +2355,7 @@ def scan_stream(eng: RecognitionEngine, scenes: np.ndarray, ticks: int, warm: in
     enc = DeltaEncoder(block_bytes=128)
     payloads = [enc.encode(tick_batch(scenes, t)) for t in range(ticks + 1)]
     r = stream_ms(eng, payloads, warm)
-    return dict(r, batches=len(payloads))
+    return dict(r, batches=2 * len(payloads))
 
 
 def run_imported(dev, scenes: np.ndarray, ticks: int, warm: int) -> dict:
@@ -3425,14 +3469,15 @@ def main() -> int:
     say("engine", f"steady state over {TICKS + 1 - WARM} ticks (submit then fetch): "
         f"{scan['frames_per_s']:.1f} frames/s, {scan['faces_per_s']:.1f} faces/s, "
         f"{scan['faces_per_batch']:.2f} faces/batch, {scan['ms_per_batch']:.2f} ms/batch")
-    say("engine", "stage ms (device, median): "
+    say("engine", f"stage ms (device, median of {SYNC_BATCHES} steady batches, the stage spans): "
         + ", ".join(f"{k} {v:.3f}" for k, v in scan["stage_ms"].items()))
     say("engine", f"resident batch == apply_host; enrolled face of frame "
         f"{scan['enrolled_frame']} matched at distance {scan['enrolled_distance']:.4f}")
     say("engine", f"submit_encoded {scan['submit_ms']:.2f} ms (host clock, median over the steady "
         f"ticks); host syncs of {SYNC_BATCHES} steady batches (torch's sync debug mode): submit "
-        f"{scan['syncs']['submit']}, fetch {scan['syncs']['fetch']}; embed rungs {scan['embed']} "
-        f"(speculated from landed counts, redone in a fetch, whole batch); on {smi}")
+        f"{scan['syncs']['submit']}, fetch {scan['syncs']['fetch']}; in the spans, all "
+        f"{SYNC_BATCHES}: {scan['span_syncs']}; embed rungs {scan['embed']} (speculated from "
+        f"landed counts, redone in a fetch, whole batch, slots embedded); on {smi}")
 
     nms = run_nms_engine(dev, scenes, PROFILE)
     say("nms", f"pre_nms_topk=512: launches {nms['launches']}, {nms['faces']} faces")

@@ -85,6 +85,7 @@ from frp_tpu_torch.ops.quality import assess_quality_batch
 from frp_tpu_torch.parallel.mesh import DATA_AXIS, serving_rows
 from frp_tpu_torch.utils.fingerprint import weights_fingerprint
 from frp_tpu_torch.utils.logger import get_logger
+from frp_tpu_torch.utils.profiling import span
 
 logger = get_logger("frp.engine")
 
@@ -570,6 +571,15 @@ class RecognitionEngine:
     rung its count needs (``embed_stats`` counts them). Results equal the
     uncompacted stage's.
 
+    Under ``torch.profiler`` each engine call and each stage of a batch
+    (across its shards) is a span (``utils/profiling.py::span``): the calls
+    ``frp.put_payload``, ``frp.submit_encoded``, ``frp.submit``,
+    ``frp.process_frames`` and ``frp.fetch_many``; the stages
+    ``frp.ingest``, ``frp.delta_ingest``, ``frp.detect``, ``frp.crop``,
+    ``frp.embed`` (embedder and spoof net) and ``frp.match_pack`` or
+    ``frp.match``; in a fetch ``frp.to_host`` around each device-to-host
+    copy and ``frp.redo`` around a redo's embed and match.
+
     ``with_spoof=False`` builds the stages without the spoof net: results
     carry no ``fake_prob`` (the packed column is zeros) and encode_image's
     faces ``fake_prob=None``, as in the JAX engine.
@@ -658,17 +668,9 @@ class RecognitionEngine:
         self.delta_stats = {"keyframes": 0, "deltas": 0, "desyncs": 0}
         # shard launches of the compacted embed stage: at a speculated rung,
         # redone in a fetch (their count passed the rung), or whole (no count
-        # landed yet, or the largest count past every rung)
-        self.embed_stats = {"speculated": 0, "redone": 0, "whole": 0}
-        # when a list, each stage boundary appends (stage name, CUDA event)
-        # — a per-stage device timeline for measurement runs; None is off
-        self.stage_events: list | None = None
-
-    def _mark(self, name: str) -> None:
-        if self.stage_events is not None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.stage_events.append((name, ev))
+        # landed yet, or the largest count past every rung); and the slots
+        # those launches embed (a rung, or every slot of a whole launch)
+        self.embed_stats = {"speculated": 0, "redone": 0, "whole": 0, "slots": 0}
 
     @property
     def _delta_prev(self):
@@ -918,6 +920,7 @@ class RecognitionEngine:
             want = max(seen) if seen else None
             rung = None if want is None else next((r for r in rungs if want <= r), None)
             self.embed_stats["whole" if rung is None else "speculated"] += 1
+            self.embed_stats["slots"] += n if rung is None else rung
         return rung, count
 
     def _run_stages(self, shards: list, tolerance: float, fmt: str = "rgb", packed: bool = True):
@@ -941,14 +944,14 @@ class RecognitionEngine:
 
         frames = list(shards)
         if fmt == "yuv420":
-            frames = each(lambda k, r: r["stages"]["ingest"](frames[k]))
-            self._mark("ingest")
-        dets = each(lambda k, r: r["stages"]["detect"](r["params"]["detector"], frames[k],
-                                                       r["priors"]))
-        self._mark("detect")
-        picks = each(lambda k, r: self._speculate(r, dets[k]["valid"]))
-        cropped = each(lambda k, r: r["stages"]["crop"](frames[k], dets[k]))
-        self._mark("crop")
+            with span("frp.ingest"):
+                frames = each(lambda k, r: r["stages"]["ingest"](frames[k]))
+        with span("frp.detect"):
+            dets = each(lambda k, r: r["stages"]["detect"](r["params"]["detector"], frames[k],
+                                                           r["priors"]))
+        with span("frp.crop"):
+            cropped = each(lambda k, r: r["stages"]["crop"](frames[k], dets[k]))
+        matching = "frp.match_pack" if packed else "frp.match"
 
         def embed(k, r, rung):
             return r["stages"]["embed"](r["params"], cropped[k]["crops"], dets[k]["valid"],
@@ -962,14 +965,21 @@ class RecognitionEngine:
 
         def redo(k, r, nv):
             """Embed and match again at the rung that holds nv valid slots."""
-            rung = next((x for x in r["stages"]["rungs"](dets[k]["valid"].numel()) if nv <= x), None)
+            n = dets[k]["valid"].numel()
+            rung = next((x for x in r["stages"]["rungs"](n) if nv <= x), None)
+            with self._lock:
+                self.embed_stats["slots"] += n if rung is None else rung
             with self._on(r):
-                return match(k, r, embed(k, r, rung))
+                with span("frp.embed"):
+                    e = embed(k, r, rung)
+                with span(matching):
+                    return match(k, r, e)
 
-        emb = each(lambda k, r: embed(k, r, picks[k][0]))
-        self._mark("embed")
-        out = each(lambda k, r: match(k, r, emb[k]))
-        self._mark("match_pack" if packed else "match")
+        with span("frp.embed"):
+            picks = each(lambda k, r: self._speculate(r, dets[k]["valid"]))
+            emb = each(lambda k, r: embed(k, r, picks[k][0]))
+        with span(matching):
+            out = each(lambda k, r: match(k, r, emb[k]))
         checks = [None if rung is None else
                   (count, rung, lambda nv, k=k, r=r: redo(k, r, nv))
                   for k, (r, (rung, count)) in enumerate(zip(reps, picks))]
@@ -996,9 +1006,10 @@ class RecognitionEngine:
             frames = frames[None]
         b = frames.shape[0]
         t0 = time.perf_counter()
-        outs, gal_names, checks = self._run_stages(self._frames(frames), tolerance, fmt,
-                                                   packed=False)
-        out = self._host_results([outs], [checks])[0]
+        with span("frp.process_frames"):
+            outs, gal_names, checks = self._run_stages(self._frames(frames), tolerance, fmt,
+                                                       packed=False)
+            out = self._host_results([outs], [checks])[0]
         out["gallery_names"] = gal_names
         dt = time.perf_counter() - t0
         if record_metrics:
@@ -1060,7 +1071,8 @@ class RecognitionEngine:
         frames = np.ascontiguousarray(frames, dtype=np.uint8)
         if frames.ndim == 3 and fmt == "rgb":
             frames = frames[None]
-        return self._submitted(self._frames(frames), tolerance, fmt, packed)
+        with span("frp.submit"):
+            return self._submitted(self._frames(frames), tolerance, fmt, packed)
 
     @torch.no_grad()
     def submit_encoded(self, enc, tolerance: float | None = None, packed: bool = True):
@@ -1071,9 +1083,12 @@ class RecognitionEngine:
         stream the resident batch came from, or it raises. Takes
         ``put_payload``'s payloads without another copy. ``packed`` as in
         ``submit``. Returns a fetch() / fetch_many() handle."""
+        with span("frp.submit_encoded"):
+            return self._submit_encoded(enc, tolerance, packed)
+
+    def _submit_encoded(self, enc, tolerance, packed):
         tolerance = self.cfg.face_tolerance if tolerance is None else tolerance
         tag = (enc.enc_id, enc.seq) if hasattr(enc, "enc_id") and hasattr(enc, "seq") else None
-        self._mark("start")
         if enc[0] == "raw":
             # COPY: the upload is retained as the resident batch, and on the
             # CPU torch.from_numpy aliases numpy memory — a caller reusing
@@ -1101,15 +1116,15 @@ class RecognitionEngine:
                     f"{want_seq + 1}). Reset the encoder; the next encode "
                     "ships a raw keyframe."
                 )
-        idx_sh = self._shards(idx, np.int64)
-        blocks_sh = self._shards(blocks, np.uint8)
         new, rgb = [], []
-        for rep, prev, i, bl in zip(self._replicas, self._resident, idx_sh, blocks_sh):
-            with self._on(rep):
-                p, f = rep["stages"]["delta_ingest"](prev, i, bl)
-            new.append(p)
-            rgb.append(f)
-        self._mark("delta_ingest")
+        with span("frp.delta_ingest"):
+            idx_sh = self._shards(idx, np.int64)
+            blocks_sh = self._shards(blocks, np.uint8)
+            for rep, prev, i, bl in zip(self._replicas, self._resident, idx_sh, blocks_sh):
+                with self._on(rep):
+                    p, f = rep["stages"]["delta_ingest"](prev, i, bl)
+                new.append(p)
+                rgb.append(f)
         self.delta_stats["deltas"] += 1
         self._resident = new
         if tag is not None:
@@ -1141,10 +1156,11 @@ class RecognitionEngine:
             shards = self._shards(x, dtype, copy, side=True)
             return shards[0] if len(self._replicas) == 1 else shards
 
-        if enc[0] == "raw":
-            data = ("raw", put(enc[1], np.uint8, copy=True))
-        else:
-            data = ("delta", put(enc[1], np.int64), put(enc[2], np.uint8))
+        with span("frp.put_payload"):
+            if enc[0] == "raw":
+                data = ("raw", put(enc[1], np.uint8, copy=True))
+            else:
+                data = ("delta", put(enc[1], np.int64), put(enc[2], np.uint8))
         return DeltaPayload(data, *tag) if tag is not None else data
 
     def precompile_delta_rungs(self, block: int | None = None) -> int:
@@ -1194,7 +1210,8 @@ class RecognitionEngine:
         together. Returns the host-side result dicts in submission order."""
         if not handles:
             return []
-        results = self._host_results([h.outs for h in handles], [h.checks for h in handles])
+        with span("frp.fetch_many"):
+            results = self._host_results([h.outs for h in handles], [h.checks for h in handles])
         now = time.perf_counter()
         for out, h in zip(results, handles):
             out["gallery_names"] = h.gallery_names
@@ -1207,7 +1224,8 @@ class RecognitionEngine:
         by_device: dict = {}
         for k, ts in items:
             by_device.setdefault(self._replicas[k]["device"], []).extend(ts)
-        host = {d: iter(to_host(ts)) for d, ts in by_device.items()}
+        with span("frp.to_host"):
+            host = {d: iter(to_host(ts)) for d, ts in by_device.items()}
         return [[next(host[self._replicas[k]["device"]]) for _ in ts] for k, ts in items]
 
     def _host_results(self, batches: list, checks: list) -> list:
@@ -1224,7 +1242,7 @@ class RecognitionEngine:
         items = [(k, leaves(o) + ([chk[0]] if chk else []))
                  for outs, cs in zip(batches, checks) for k, (o, chk) in enumerate(zip(outs, cs))]
         got = iter(self._copy_leaves(items))
-        parts, redone = [], []
+        parts, over = [], []
         for b, (outs, cs) in enumerate(zip(batches, checks)):
             parts.append([])
             for k, chk in enumerate(cs):
@@ -1232,11 +1250,13 @@ class RecognitionEngine:
                 if chk:
                     nv = int(arrays.pop())
                     if nv > chk[1]:
-                        redone.append((b, k, chk[2](nv)))
+                        over.append((b, k, chk[2], nv))
                 parts[b].append(arrays)
-        if redone:
+        if over:
             with self._lock:
-                self.embed_stats["redone"] += len(redone)
+                self.embed_stats["redone"] += len(over)
+            with span("frp.redo"):
+                redone = [(b, k, redo(nv)) for b, k, redo, nv in over]
             again = self._copy_leaves([(k, leaves(o)) for _, k, o in redone])
             for (b, k, _), arrays in zip(redone, again):
                 parts[b][k] = arrays

@@ -1,8 +1,19 @@
 """Device tracing and stage timers for the port's platform (port of
-``frp_tpu/utils/profiling.py``): ``StageTimers`` as it is, and a
-``DeviceTracer`` built on ``torch.profiler``, which writes a Chrome trace
-(``trace.json``, the card's kernels and copies beside the host's ops) where
-the JAX package writes a ``jax.profiler`` trace.
+``frp_tpu/utils/profiling.py``): ``StageTimers``, a ``DeviceTracer`` built
+on ``torch.profiler``, which writes a Chrome trace (``trace.json``, the
+card's kernels and copies beside the host's ops of every thread) where the
+JAX package writes a ``jax.profiler`` trace, and ``span``, the program's
+named host ranges in such a trace.
+
+``span(name)`` is a named range of the profiler's host events while any
+``torch.profiler`` runs, and a shared no-op context otherwise: one read of
+a module flag a call, so the engine's spans cost nothing measurable
+untraced. Under a profiler they sit on its clock, and the kernels and
+copies launched inside one link to it through the profiler's correlation
+ids. The range is torch's ``_RecordFunctionFast``, not ``record_function``:
+the latter enters and leaves through an operator call that releases the
+GIL, so a traced engine beside a busy producer thread lost the GIL at
+every span and left the card idle after each fetch.
 """
 
 from __future__ import annotations
@@ -20,9 +31,28 @@ from frp_tpu_torch.utils.logger import get_logger
 
 logger = get_logger("frp.utils.profiling")
 
+_OFF = contextlib.nullcontext()
+_RANGE = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """A range named ``name`` while a profiler runs (the flag
+    ``torch.profiler`` sets for every thread), else a no-op context."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return _RANGE(name)
+    return _OFF
+
+
+def all_threads() -> dict:
+    """``torch.profiler.profile``'s arguments that record the host ops of
+    every thread, not only the one that starts the profile."""
+    return {"experimental_config": torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)}
+
 
 class StageTimers:
-    """Cheap named wall-clock accumulators (host-side view of stage costs)."""
+    """Cheap named wall-clock accumulators (host-side view of stage costs);
+    each ``track(name)`` is also the span ``frp.<name>`` in a trace."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -32,7 +62,8 @@ class StageTimers:
     def track(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"frp.{name}"):
+                yield
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
@@ -57,9 +88,11 @@ class StageTimers:
 
 
 class DeviceTracer:
-    """torch.profiler trace sessions (one at a time): host ops, and the
-    card's kernels and copies where there is a card, as a Chrome trace
-    ``trace.json`` in a directory of its own under ``trace_dir``."""
+    """torch.profiler traces (one at a time): the host ops and
+    ``span``s of every thread (the scan's, the transfer thread's
+    ``frp.put_payload``), and the card's kernels and copies where there is a
+    card, as a Chrome trace ``trace.json`` in a directory of its own under
+    ``trace_dir``."""
 
     def __init__(self, trace_dir: str = "data/traces"):
         self.trace_dir = trace_dir
@@ -75,8 +108,8 @@ class DeviceTracer:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
             try:
+                prof = torch.profiler.profile(activities=activities, **all_threads())
                 prof.start()
             except Exception as e:  # the route reports it; serving goes on
                 logger.exception("trace start failed")
@@ -97,12 +130,6 @@ class DeviceTracer:
                 logger.exception("trace stop failed")
                 return {"success": False, "message": str(e)}
             return {"success": True, "trace_dir": path}
-
-    @contextlib.contextmanager
-    def annotate(self, name: str):
-        """Named region visible in the trace."""
-        with torch.profiler.record_function(name):
-            yield
 
 
 def busy_ms(fn, n: int, top: int = 4) -> tuple[float | None, list]:

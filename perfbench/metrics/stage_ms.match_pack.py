@@ -1,0 +1,9 @@
+"""Device ms a batch of the engine's ``frp.match_pack`` stage in the traced
+slice: the kernels and copies launched inside its spans, over the
+slice's batches (its ``frp.submit_encoded`` spans)."""
+
+from perfbench.metrics._program import stage_ms
+
+
+def read(run):
+    return stage_ms(run, "frp.match_pack")

@@ -82,13 +82,17 @@ def _hold(got: dict, want: dict) -> None:
 def _expected_stats(counts: list) -> dict:
     """The rung rule over a sequence of valid counts: the smallest rung
     holding the largest of the last SPECULATION_WINDOW counts before a
-    batch; the whole batch with none."""
-    stats = {"speculated": 0, "redone": 0, "whole": 0}
+    batch; the whole batch with none. The slots embedded: the rung, or all
+    64 slots of a whole batch, and a redo's rung on top."""
+    stats = {"speculated": 0, "redone": 0, "whole": 0, "slots": 0}
     for t, nv in enumerate(counts):
         seen = counts[max(0, t - SPECULATION_WINDOW):t]
         rung = next((r for r in RUNGS if seen and max(seen) <= r), None)
         stats["whole" if rung is None else "speculated"] += 1
-        stats["redone"] += rung is not None and nv > rung
+        stats["slots"] += 64 if rung is None else rung
+        if rung is not None and nv > rung:
+            stats["redone"] += 1
+            stats["slots"] += next(r for r in RUNGS + [64] if nv <= r)
     return stats
 
 
@@ -111,7 +115,7 @@ def test_rung_pick_redoes_an_overflow_and_equals_the_uncompacted_engine(batches,
     assert 0 < low <= RUNGS[0] < high <= RUNGS[-1], counts
     assert on.embed_stats == _expected_stats(counts)
     assert on.embed_stats["redone"] == 2 and on.embed_stats["whole"] == 1
-    assert off.embed_stats == {"speculated": 0, "redone": 0, "whole": 0}
+    assert off.embed_stats == {"speculated": 0, "redone": 0, "whole": 0, "slots": 0}
 
 
 def test_pipelined_submits_redo_in_fetch_many(batches, monkeypatch):
@@ -130,7 +134,9 @@ def test_pipelined_submits_redo_in_fetch_many(batches, monkeypatch):
             if key != "gallery_names":
                 np.testing.assert_array_equal(g[key], w[key], err_msg=key)
         _hold(g, off.fetch(off.submit(x)))
-    assert piped.embed_stats == serial.embed_stats == {"speculated": 2, "redone": 1, "whole": 1}
+    stats = _expected_stats([int(w["count"].sum()) for w in want])
+    assert piped.embed_stats == serial.embed_stats == stats
+    assert (stats["speculated"], stats["redone"], stats["whole"]) == (2, 1, 1)
     # a full-tree fetch of a redone batch keeps every output
     again = _engine(monkeypatch)
     for name, emb in zip(*serial.gallery.host_arrays()[::-1]):
