@@ -5,7 +5,7 @@
 Phases, each printed on its own lines, in order:
 
 1. device   the card's name, and its name and power limit from nvidia-smi.
-2. build    nvcc builds the three kernels of ``frp_tpu_torch/csrc`` for
+2. build    nvcc builds the four kernels of ``frp_tpu_torch/csrc`` for
             sm_90a, all at once.
 3. kernels  each kernel against its plain PyTorch version on the card at the
             main path's shapes: masks, valid flags and counts bit for bit,
@@ -19,7 +19,21 @@ Phases, each printed on its own lines, in order:
             K=256, 512 and 1024 with 60 % of the candidates above, and at
             K=512 with all above in a crowd and with 10 % above; a whole
             nms_padded_batched call over the 16800 anchors is timed beside
-            the kernel's share of it.
+            the kernel's share of it. The iresnet chains' pass (bn_act,
+            which replaces no TPU kernel) at r50.stream's rung of 1664
+            faces, bf16, in each of its seven modes where iresnet50 runs it
+            (``BN_ACT_CASES``: the stem's BN-PReLU with block 0's bn1 at
+            64 x 112 x 112, block 0's pass A into conv2's padded input,
+            pass A and the BN-add-BN pass B with the block input and with
+            the down shortcut at stage 1 and stage 3, the last block's
+            head_bn alone): each output within 1 bf16 ulp of its chain
+            computed in f32 and rounded once (the plain version), timed
+            beside it, beside its bound (bytes over 3.35 TB/s) and beside
+            the eager bf16 chain it replaced. Phases 4, 8, 13 and 18 print
+            its launches and hold them on the card to exactly 1 + 2 x blocks
+            for each inference forward of an iresnet that the phase ran (17
+            for iresnet18, 49 for iresnet50; none for MobileFaceNet),
+            counted by a wrapper of ``iresnet_forward`` apart from the pass.
 4. engine   the port's RecognitionEngine on cuda in the default profile (det
             640, 16 slots, top-256, bf16, spoof and quality on, MobileFaceNet,
             the shipped weights) over a DeltaEncoder stream of 8 rendered 640
@@ -283,10 +297,13 @@ from frp_tpu_torch.api.http import HTTPServer
 from frp_tpu_torch.api.main import build_app
 from frp_tpu_torch.api.socketio import read_frame
 from frp_tpu_torch.config import load_config
-from frp_tpu_torch.engine import batching
+from frp_tpu_torch.engine import batching, pipeline
 from frp_tpu_torch.engine.batching import DeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline, embed_compact_rungs
-from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, launches, nms_cuda, reset_launches
+from frp_tpu_torch.models import iresnet, nn
+from frp_tpu_torch.ops import align_cuda, bn_act_cuda, cuda_build, detection_cuda, nms_cuda
+from frp_tpu_torch.ops import launches as all_launches
+from frp_tpu_torch.ops import reset_launches as reset_all_launches
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
 from frp_tpu_torch.ops.decode import decode_boxes, decode_landmarks
@@ -322,6 +339,53 @@ KERNELS = {
     "warp_crops": ("frp_tpu_torch/csrc/warp_crops.cu", "frp_tpu/ops/align_pallas.py:58"),
     "greedy_nms": ("frp_tpu_torch/csrc/greedy_nms.cu", "frp_tpu/ops/nms_pallas.py:26"),
 }
+
+
+def launches() -> dict[str, int]:
+    """The three ported kernels' launch counts since the last reset_launches
+    (``KERNELS``); the iresnet chains' pass is counted apart, by
+    ``chain_launches``."""
+    return {name: n for name, n in all_launches().items() if name in KERNELS}
+
+
+# the pass's launches owed by the iresnet forwards run on the card since the
+# last reset_launches: 1 + 2 x blocks an inference forward, counted where the
+# engine and the tools look the forward up, apart from the pass itself
+_owed = {"launches": 0}
+_owed_lock = threading.Lock()
+
+
+def count_forwards() -> None:
+    """Wrap ``iresnet_forward`` in its module and in the engine's (before any
+    engine is built) so that each inference forward of a CUDA input adds
+    the launches it owes to ``_owed``; the training forward owes none."""
+    base = iresnet.iresnet_forward
+
+    def counted(params, x, normalize=True, train=False, bn_group=None):
+        if x.is_cuda and not train:
+            with _owed_lock:
+                _owed["launches"] += 1 + 2 * sum(len(stage) for stage in params["stages"])
+        return base(params, x, normalize, train, bn_group)
+
+    iresnet.iresnet_forward = pipeline.iresnet_forward = counted
+
+
+def reset_launches() -> None:
+    """Clear every wrapper's launch count and the launches owed."""
+    reset_all_launches()
+    with _owed_lock:
+        _owed["launches"] = 0
+
+
+def chain_launches(dev) -> int:
+    """bn_act's launches since the last reset_launches. On the card, exactly
+    those the iresnet forwards owe: a forward that took the block path
+    leaves them short."""
+    n, owed = bn_act_cuda.LAUNCHES, _owed["launches"]
+    if dev.type == "cuda" and n != owed:
+        raise AssertionError(f"bn_act launched {n} times; the iresnet forwards on the card "
+                             f"owe {owed}")
+    return n
 
 
 def say(phase: str, text: str) -> None:
@@ -652,6 +716,126 @@ def nms_call_share(dev, k: int) -> dict:
     return out
 
 
+# the iresnet chains' pass (csrc/bn_act.cu) at r50.stream's embed rung, in
+# each of its seven modes at a shape where iresnet50's forward runs it:
+# name -> (C, H = W of the input, keywords of ``bn_act_call``)
+BN_ACT_BATCH = 1664
+BN_ACT_CASES = {
+    "stem": (64, 112, dict(nxt=True)),                     # bn_prelu + block 0's bn1
+    "stage1_pad": (64, 112, dict(pad=(1, 1))),             # block 0's pass A, into conv2's pad
+    "stage1_A": (64, 56, {}),                              # bn2, PReLU
+    "stage1_down": (64, 56, dict(sc=True, down=True)),     # bn3 + down_bn(shortcut), next bn1
+    "stage1_B": (64, 56, dict(sc=True)),                   # bn3 + block input, next bn1
+    "stage3_A": (256, 14, {}),
+    "stage3_B": (256, 14, dict(sc=True)),
+    "stage4_last": (512, 7, dict(sc=True, keep=False)),    # head_bn of the sum alone
+    "stage4_down_last": (512, 7, dict(sc=True, down=True, keep=False)),
+}
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The most bf16 units in the last place between two bf16 tensors."""
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def bn_act_call(route: str, x: torch.Tensor, sc: torch.Tensor | None, layers: dict,
+                nxt: bool = False, pad=None, down: bool = False, keep: bool = True) -> tuple:
+    """One case of the pass as (y or r, u), None where not written: route
+    "kernel" launches it, "eager" runs the eager bf16 chain the forward ran
+    before (the plain twins), "f32" the chain computed in f32 from the same
+    folds and rounded once to x's dtype (the plain version it is held to)."""
+    bn_next = layers["bn_next"] if nxt or sc is not None else None
+    down_bn = layers["down_bn"] if down else None
+    if route != "f32":
+        if sc is None:
+            f = bn_act_cuda.bn_prelu if route == "kernel" else bn_act_cuda.bn_prelu_plain
+            y = f(x, layers["bn"], layers["act"], bn_next=bn_next, pad=pad)
+            return y if nxt else (y, None)
+        f = bn_act_cuda.bn_add if route == "kernel" else bn_act_cuda.bn_add_plain
+        return f(x, layers["bn"], sc, bn_next, down_bn=down_bn, keep=keep)
+
+    def fold(bn):
+        return [v.float() for v in nn.bn_fold(bn, x)]
+
+    s, t = fold(layers["bn"])
+    v = x.float() * s + t
+    if sc is None:
+        a = nn._cast(layers["act"], "alpha", x.dtype).float()[:, None, None]
+        v = torch.where(v >= 0, v, a * v)
+        if pad is not None:
+            v = F.pad(v, (0, pad[1], 0, pad[0]))
+    else:
+        d = sc.float()
+        if down_bn is not None:
+            sd, td = fold(down_bn)
+            d = d * sd + td
+        v = d + v
+    u = None
+    if bn_next is not None:
+        s1, t1 = fold(bn_next)
+        u = (v * s1 + t1).to(x.dtype)
+    return (v.to(x.dtype) if keep else None), u
+
+
+def check_bn_act(dev) -> dict:
+    """The iresnet chains' pass at r50.stream's rung, bf16, in every case of
+    ``BN_ACT_CASES``: each output held within 1 bf16 ulp of the f32 chain
+    rounded once (the padded output's zero border included), timed beside
+    that chain (the plain version), beside its bound (each input read once,
+    each output written once, over 3.35 TB/s) and beside the eager bf16
+    chain the forward ran before (``library_ms``, a yardstick the port no
+    longer runs)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+
+    def param(lo, hi, c, normal=False):
+        v = rng.normal(lo, hi, c) if normal else rng.uniform(lo, hi, c)
+        return torch.from_numpy(v.astype(np.float32)).to(dev)
+
+    out = {}
+    for name, (c, h, kw) in BN_ACT_CASES.items():
+        layers = {k: {"gamma": param(0.5, 1.5, c), "beta": param(0, 0.3, c, True),
+                      "mean": param(0, 0.3, c, True), "var": param(0.5, 2.0, c)}
+                  for k in ("bn", "bn_next", "down_bn")}
+        layers["act"] = {"alpha": param(0.05, 0.45, c)}
+        x, sc = (torch.randn((BN_ACT_BATCH, h, h, c), generator=gen, device=dev)
+                 .to(torch.bfloat16).permute(0, 3, 1, 2) for _ in range(2))
+        kw = dict(kw)
+        sc = sc if kw.pop("sc", False) else None
+
+        def run(route):
+            return bn_act_call(route, x, sc, layers, **kw)
+
+        got, want, eager = run("kernel"), run("f32"), run("eager")
+        torch.cuda.synchronize()
+        pairs = [(g, w, e) for g, w, e in zip(got, want, eager) if w is not None]
+        if any(g is None or g.shape != w.shape for g, w, _ in pairs) or len(pairs) != sum(
+                g is not None for g in got):
+            raise AssertionError(f"bn_act {name}: outputs {[None if g is None else tuple(g.shape) for g in got]}")
+        ulps = max(bf16_ulps(g, w) for g, w, _ in pairs)
+        if ulps > 1:
+            raise AssertionError(f"bn_act {name}: {ulps} bf16 ulps from the f32 chain rounded once")
+        err = max(max_err(g, w) for g, w, _ in pairs)
+        lib_err = max(max_err(g, e) for g, _, e in pairs)
+        n_in = x.numel() * (1 if sc is None else 2)
+        n_out = sum(g.numel() for g, _, _ in pairs)
+        del got, want, eager, pairs
+        bound_ms, bound_by = bound(2 * (n_in + n_out) + 7 * c * 2, 0)
+        out[name] = dict(
+            shape=[BN_ACT_BATCH, c, h, h], max_ulps=ulps, max_abs_err=err,
+            ms=device_ms(lambda: run("kernel")), bound_ms=bound_ms, bound_by=bound_by,
+            plain_ms=device_ms(lambda: run("f32"), reps=10, host_bound=True),
+            library_ms=device_ms(lambda: run("eager"), reps=20, host_bound=True),
+            library_max_abs_err=lib_err)
+        del x, sc
+        torch.cuda.empty_cache()
+    return out
+
+
 # --- phases 4 to 7: the engine -----------------------------------------------
 
 STAGES = ("ingest", "delta_ingest", "detect", "crop", "embed", "match_pack", "match")
@@ -779,6 +963,7 @@ def run_scan(dev, scenes: np.ndarray, profile: dict, ticks: int, warm: int) -> d
         raise AssertionError(f"launches {got}, expected {want}")
     return dict(
         engine=eng, out=out, launches=got, batches=n_batches,
+        chains=chain_launches(dev),
         frames_per_s=steady * len(scenes) / elapsed, faces_per_s=faces / elapsed,
         faces_per_batch=faces / steady, ms_per_batch=elapsed * 1e3 / steady,
         stage_ms=stages, enrolled_frame=j,
@@ -1020,6 +1205,7 @@ def run_accuracy(dev, scenes: np.ndarray, ticks: int, warm: int, default_eng: Re
     if dev.type == "cuda" and got != want:
         raise AssertionError(f"compaction runs: launches {got}, expected {want}")
     scan.update(launches=got, batches=scan["batches"] + n_batches,
+                chains=chain_launches(dev),
                 compaction=comp, default_compaction=base)
     return scan
 
@@ -2408,6 +2594,7 @@ def run_imported(dev, scenes: np.ndarray, ticks: int, warm: int) -> dict:
             raise AssertionError(f"phase 13 launches {got}, expected {want}")
         return dict(scan=scan, compaction=comp, onnx_scan=onnx_scan, parity=par, bf16=bf16,
                     tools=tools, launches=got, batches=n_batches, write_s=made["write_s"],
+                    chains=chain_launches(dev),
                     embedder_mb=made["embedder_mb"])
     finally:
         nn.set_padding_mode("same")
@@ -3334,7 +3521,8 @@ def diag_run(name: str, dev, dtype: str, out_dir: str, size: list = DIAG_SIZE) -
     sets = diag_metric_sets(name, report)
     if len(dists) != len(sets) or not all(m["n_same"] > 0 and m["n_diff"] > 0 for m in sets):
         raise AssertionError(f"{name} at {dtype} on {dev.type}: pair sets {[len(d) for d in dists]}")
-    return dict(report=report, seconds=seconds, launches=got, dists=dists)
+    return dict(report=report, seconds=seconds, launches=got, dists=dists,
+                chains=chain_launches(dev))
 
 
 def hold_diag(name: str, got: dict, want: dict) -> dict:
@@ -3416,6 +3604,7 @@ def main() -> int:
         return 1
     t_run = time.perf_counter()
     dev = torch.device("cuda")
+    count_forwards()
     device_kind = torch.cuda.get_device_name(0)
     smi = gpu_name_and_limit()
     say("device", f"{device_kind} | torch {torch.__version__} cuda {torch.version.cuda} | "
@@ -3452,6 +3641,14 @@ def main() -> int:
             + (f"; faces far larger than the frame: max abs err "
                f"{c['large_face_max_abs_err']:.3g}" if "large_face_max_abs_err" in c else ""))
     say("kernels", "all three kernels equal their plain versions")
+    chains = check_bn_act(dev)
+    for key, c in chains.items():
+        say("kernels", f"bn_act {key} {c['shape']} bf16: within {c['max_ulps']} ulp of the f32 "
+            f"chain rounded once (max abs err {c['max_abs_err']:.3g}); kernel {c['ms'] * 1e3:.1f} us, "
+            f"bound {c['bound_ms'] * 1e3:.1f} us by {c['bound_by']} "
+            f"({100 * c['bound_ms'] / c['ms']:.1f} % of it), plain (the f32 chain) "
+            f"{c['plain_ms'] * 1e3:.1f} us, the eager bf16 chain it replaced {c['library_ms'] * 1e3:.1f} "
+            f"us (max abs diff {c['library_max_abs_err']:.3g})")
     shares = {k: nms_call_share(dev, k) for k in (256, 512)}
     for k, c in shares.items():
         say("kernels", f"nms_padded_batched [8, 16800] -> K={k}, 64 above a frame: "
@@ -3465,7 +3662,8 @@ def main() -> int:
 
     scan = run_scan(dev, scenes, PROFILE, TICKS, WARM)
     say("engine", f"default profile, {FRAMES} x 640 I420 delta stream, {TICKS} ticks "
-        f"after the keyframe: {scan['batches']} batches, launches {scan['launches']}")
+        f"after the keyframe: {scan['batches']} batches, launches {scan['launches']}, bn_act "
+        f"{scan['chains']} (MobileFaceNet: none)")
     say("engine", f"steady state over {TICKS + 1 - WARM} ticks (submit then fetch): "
         f"{scan['frames_per_s']:.1f} frames/s, {scan['faces_per_s']:.1f} faces/s, "
         f"{scan['faces_per_batch']:.2f} faces/batch, {scan['ms_per_batch']:.2f} ms/batch")
@@ -3498,7 +3696,8 @@ def main() -> int:
     acc = run_accuracy(dev, scenes, TICKS, WARM, scan["engine"])
     say("accuracy", f"iresnet18 + flip-TTA, distance scale {acc['engine'].distance_scale}, "
         f"{FRAMES} x 640 I420 delta stream, {TICKS} ticks after the keyframe: "
-        f"{acc['batches']} batches with the compaction runs, launches {acc['launches']}")
+        f"{acc['batches']} batches with the compaction runs, launches {acc['launches']}, bn_act "
+        f"{acc['chains']} ({acc['chains'] // 17} iresnet18 forwards of 17)")
     say("accuracy", f"steady state over {TICKS + 1 - WARM} ticks (submit then fetch): "
         f"{acc['frames_per_s']:.1f} frames/s, {acc['faces_per_s']:.1f} faces/s, "
         f"{acc['faces_per_batch']:.2f} faces/batch, {acc['ms_per_batch']:.2f} ms/batch")
@@ -3704,7 +3903,8 @@ def main() -> int:
         f"faces/batch, {oc['ms_per_batch']:.2f} ms/batch; stage ms (device, median) "
         + ", ".join(f"{k} {v:.3f}" for k, v in oc["stage_ms"].items())
         + f"; launches {imp['launches']} over {imp['batches']} batches (kernels 1 and 2 once a "
-        f"batch); phase 13 took {time.perf_counter() - t_import:.1f} s on {smi}")
+        f"batch), bn_act {imp['chains']} ({imp['chains'] // 49} iresnet50 forwards of 49); "
+        f"phase 13 took {time.perf_counter() - t_import:.1f} s on {smi}")
 
     t_mesh = time.perf_counter()
     me = run_mesh_engine(dev, scenes, TICKS, WARM)
@@ -3869,7 +4069,8 @@ def main() -> int:
     for (name, dtype), r in dg["runs"].items():
         on = "cpu, f32" if dtype == "cpu" else f"cuda, {'f32, TF32 off' if dtype == 'float32' else 'bf16'}"
         say("diagnostics", f"{name} {' '.join(dg['size'] + DIAG_TOOLS[name])} ({on}): "
-            f"{r['seconds']:.1f} s, launches {r['launches']}; {diag_summary(name, r['report'])}"
+            f"{r['seconds']:.1f} s, launches {r['launches']}, bn_act {r['chains']}; "
+            f"{diag_summary(name, r['report'])}"
             + ("" if dtype == "cpu" else f"; on {smi}"))
         say("diagnostics", f"{name} ({on}) report: {json.dumps(r['report'])}")
     for name, h in dg["held"].items():
@@ -3910,6 +4111,14 @@ def main() -> int:
     # kernels 1 and 2 in the accuracy diagnostics' card runs (phase 18)
     for row in rows:
         row["diagnostics_launches"] = dg["launches"][row["name"]]
+    # the iresnet chains' pass: no TPU kernel; its launches in the phases that
+    # run an iresnet, and its numbers at r50.stream's shapes (phase 3)
+    rows.append({"name": "bn_act", "route": "cuda", "source": "frp_tpu_torch/csrc/bn_act.cu",
+                 "replaces": None,
+                 "launches": {"engine": scan["chains"], "accuracy": acc["chains"],
+                              "imported": imp["chains"],
+                              "diagnostics": sum(r["chains"] for r in dg["runs"].values())},
+                 **chains})
     say("done", f"the whole run took {time.perf_counter() - t_run:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,14 @@ Block: BN, 3x3 conv, BN, PReLU, 3x3 conv carrying the stride, BN; a 1x1 conv
 (+BN) with the stride on the shortcut where the shape changes. Head: BN, a
 flatten in (c, h, w) order, an fc to ``embed_dim``, a 1-D feature BN in f32,
 then the L2 normalisation.
+
+At inference, where autograd records nothing, the element-wise chains
+between the convs go through ``ops/bn_act_cuda.py``, one pass each: after
+the stem conv its BN and PReLU and block 0's bn1; after each conv1 bn2 and
+PReLU (into conv2's padded input where conv2 would pad by a copy); after
+each conv2 bn3, the shortcut (through down_bn), the add and the next block's
+bn1 (head_bn after the last block). On the CPU those are the same ops as the
+block below, in the same order.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from frp_tpu_torch.models import nn
+from frp_tpu_torch.ops import bn_act_cuda
 
 _DEPTHS = {
     "iresnet18": (2, 2, 2, 2),
@@ -59,6 +68,49 @@ def _block(p, x, stride, stats=None, path=(), group=None):
     return x + y
 
 
+def _leaves(tree):
+    """The tensors of a parameter tree, leaving out the layers' caches
+    (``_cast``, ``_folded``)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            if not k.startswith("_"):
+                yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _records_grad(params: dict, x: torch.Tensor) -> bool:
+    """Whether autograd would record this forward: grad mode on, and the
+    input or a parameter requires grad."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in _leaves(params)))
+
+
+def _chains(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The inference trunk through one ``bn_act_cuda`` pass a chain: x NHWC
+    -> head_bn of the last block's output, [B, C, 7, 7] (channels-last)."""
+    blocks = [(p, 2 if b == 0 else 1) for stage in params["stages"] for b, p in enumerate(stage)]
+    y = nn.conv(params["stem"], x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+    r, u = bn_act_cuda.bn_prelu(y, params["stem_bn"], params["stem_prelu"],
+                                bn_next=blocks[0][0]["bn1"])
+    for k, (p, stride) in enumerate(blocks):
+        last = k + 1 == len(blocks)
+        y = nn.conv(p["conv1"], u)
+        pad = nn.explicit_pad(p["conv2"], y.shape[2:], stride)
+        y = bn_act_cuda.bn_prelu(y, p["bn2"], p["prelu"], pad=pad)
+        y = nn.conv(p["conv2"], y, stride=stride, padding="SAME" if pad is None else "VALID")
+        down = None
+        if "down_conv" in p:
+            r, down = nn.conv(p["down_conv"], r, stride=stride), p["down_bn"]
+        r, u = bn_act_cuda.bn_add(y, p["bn3"], r,
+                                  params["head_bn"] if last else blocks[k + 1][0]["bn1"],
+                                  down_bn=down, keep=not last)
+    return u
+
+
 def init_iresnet(rng_or_seed=0, variant: str = "iresnet18", embed_dim: int = 128) -> dict:
     """Numpy parameter tree, equal to ``frp_tpu.models.iresnet.init_iresnet``
     for the same seed and variant."""
@@ -96,12 +148,15 @@ def iresnet_forward(params: dict, x: torch.Tensor, normalize: bool = True,
     takes the statistics over its global batch (``nn.batch_norm``)."""
     stats: dict | None = {} if train else None
     g = bn_group
-    y = nn.conv(params["stem"], x.permute(0, 3, 1, 2))
-    y = nn.prelu(params["stem_prelu"], _bn(params, "stem_bn", y, stats, (), g))
-    for si, stage in enumerate(params["stages"]):
-        for b, block in enumerate(stage):
-            y = _block(block, y, 2 if b == 0 else 1, stats, ("stages", si, b), g)
-    y = _bn(params, "head_bn", y, stats, (), g)
+    if stats is None and not _records_grad(params, x):
+        y = _chains(params, x)
+    else:
+        y = nn.conv(params["stem"], x.permute(0, 3, 1, 2))
+        y = nn.prelu(params["stem_prelu"], _bn(params, "stem_bn", y, stats, (), g))
+        for si, stage in enumerate(params["stages"]):
+            for b, block in enumerate(stage):
+                y = _block(block, y, 2 if b == 0 else 1, stats, ("stages", si, b), g)
+        y = _bn(params, "head_bn", y, stats, (), g)
     # the activations are logically NCHW, so a reshape flattens in (c, h, w)
     # order, the order the fc's inputs index (the JAX package transposes its
     # NHWC map to NCHW first); reshape copies a channels-last map as needed

@@ -143,6 +143,22 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def explicit_pad(p: dict, hw, stride: int = 1) -> tuple[int, int] | None:
+    """(rows, columns) of zeros that ``conv(p, x, stride)`` appends below and
+    right of an input of spatial size hw with ``F.pad`` before it convolves
+    (XLA SAME with pads (0, hi) that differ, as a stride-2 conv on an even
+    input has): a producer that writes them itself hands conv the padded
+    input with padding="VALID". None where conv pads otherwise: symmetric
+    pads, a pad before the input, or the "torch" mode."""
+    if _PADDING_MODE == "torch":
+        return None
+    ph = _same_pads(hw[0], p["w"].shape[2], stride)
+    pw = _same_pads(hw[1], p["w"].shape[3], stride)
+    if (ph[0] == ph[1] and pw[0] == pw[1]) or ph[0] or pw[0]:
+        return None
+    return ph[1], pw[1]
+
+
 def conv(p: dict, x: torch.Tensor, stride: int = 1, padding: str = "SAME", groups: int = 1) -> torch.Tensor:
     """Conv with OIHW weights p["w"]; padding "SAME" (XLA, or k//2 on both
     sides in the "torch" mode) or "VALID"."""
@@ -200,6 +216,15 @@ def batch_norm(p: dict, x: torch.Tensor, train: bool = False, momentum: float = 
         # f32 statistics and arithmetic whatever x's dtype, one rounding to it
         y = F.batch_norm(x, None, None, p["gamma"], p["beta"], True, 0.0, eps)
         return y, new
+    scale, shift = bn_fold(p, x, eps)
+    return x * scale + shift
+
+
+def bn_fold(p: dict, x: torch.Tensor, eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inference BN's (scale, shift) for x: folded from the running
+    stats in f32, cast to x.dtype, shaped [C, 1, 1] (views of [C] tensors)
+    for a 4-D x and [C] for a 2-D one; cached per (dtype, rank) in
+    p["_folded"] unless the stats are being trained."""
     trained = p["var"].requires_grad or p["gamma"].requires_grad
     key = (x.dtype, x.dim())
     folded = None if trained else p.get("_folded", {}).get(key)
@@ -212,8 +237,7 @@ def batch_norm(p: dict, x: torch.Tensor, train: bool = False, momentum: float = 
         folded = (scale, shift)
         if not trained:
             p.setdefault("_folded", {})[key] = folded
-    scale, shift = folded
-    return x * scale + shift
+    return folded
 
 
 def _batch_norm_global(p: dict, x: torch.Tensor, dims: tuple, momentum: float, eps: float,

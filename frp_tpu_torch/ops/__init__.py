@@ -1,4 +1,4 @@
-"""The port's ops. The three CUDA kernels' wrapper modules each count their
+"""The port's ops. The CUDA kernels' wrapper modules each count their
 launches in ``LAUNCHES``; ``launches`` and ``reset_launches`` read and clear
 those counts under the kernels' names."""
 
@@ -8,7 +8,7 @@ import importlib
 
 # kernel name -> its wrapper module in this package
 KERNEL_MODULES = {"detection_head": "detection_cuda", "warp_crops": "align_cuda",
-                  "greedy_nms": "nms_cuda"}
+                  "greedy_nms": "nms_cuda", "bn_act": "bn_act_cuda"}
 
 
 def _modules() -> dict:

@@ -5,12 +5,13 @@ compiles it for Hopper (``sm_90a``) into a shared library under
 ``build/frp_tpu_torch/`` at the repository root (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited kernel rebuilds and an
 unchanged one is reused. ``ctypes`` loads it; the wrappers in
-``detection_cuda``, ``align_cuda`` and ``nms_cuda`` pass tensor pointers and
-PyTorch's current stream as ``c_void_p``.
+``detection_cuda``, ``align_cuda``, ``nms_cuda`` and ``bn_act_cuda`` pass
+tensor pointers and PyTorch's current stream as ``c_void_p``.
 
-Nothing is compiled or loaded at import: the first CUDA call of a wrapper
-builds its kernel, and ``build()`` compiles several sources in parallel (one
-``nvcc`` process each, all started together).
+Nothing is compiled or loaded at import. ``build()`` compiles several sources
+in parallel (one ``nvcc`` process each, all started together); the first
+CUDA call of a wrapper whose kernel is not built yet builds every kernel of
+``KERNELS`` not built yet, in one such round.
 
 The host library ``csrc/framepack.cpp`` (the frame packer and change
 searches of ``utils/native.py``) is built beside them by ``build_host``, with
@@ -31,7 +32,11 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "frp_tpu_torch")
-KERNELS = ("detection_head", "warp_crops", "greedy_nms")
+KERNELS = ("detection_head", "warp_crops", "greedy_nms", "bn_act")
+# kernels whose library is a ctypes.PyDLL, whose calls hold the interpreter
+# lock: a release costs the calling thread its turn beside a busy Python
+# thread, which a kernel launched dozens of times a forward cannot afford
+KEEP_GIL = frozenset({"bn_act"})
 # -fmad=false: every multiply and add rounds on its own, in source order, so
 # the kernels' float decisions (overlap > 1.0, floor of a sample coordinate)
 # match the plain PyTorch versions', which never contract
@@ -132,14 +137,16 @@ def build(names=KERNELS) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if needed."""
+    """The loaded library of one kernel, built first if needed (with every
+    other kernel of ``KERNELS`` not built yet): a ``ctypes.PyDLL`` for the
+    kernels of ``KEEP_GIL``, a ``ctypes.CDLL`` for the others."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = library_path(name)
             if not os.path.exists(path):
-                build((name,))
-            lib = _libs[name] = ctypes.CDLL(path)
+                build(tuple(dict.fromkeys((name, *KERNELS))))
+            lib = _libs[name] = (ctypes.PyDLL if name in KEEP_GIL else ctypes.CDLL)(path)
         return lib
 
 

@@ -362,6 +362,188 @@ def test_iresnet18_on_the_card_matches_cpu(cuda, dtype):
         assert (np.sum(got * want, 1) / np.linalg.norm(got, axis=1) / np.linalg.norm(want, axis=1)).min() >= 0.99
 
 
+# --- the iresnet chains' one-pass kernel (csrc/bn_act.cu) -------------------------
+
+# iresnet50's activations after its convs: (C, H = W)
+R50_SHAPES = [(64, 112), (64, 56), (128, 56), (128, 28), (256, 28), (256, 14), (512, 14), (512, 7)]
+BN_ACT_MODES = ("stem", "prelu", "prelu_pad", "add", "add_last", "down", "down_last")
+
+
+def _bn_dict(rng, c, dev):
+    return {"gamma": torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(dev),
+            "beta": torch.from_numpy(rng.normal(0, 0.3, c).astype(np.float32)).to(dev),
+            "mean": torch.from_numpy(rng.normal(0, 0.3, c).astype(np.float32)).to(dev),
+            "var": torch.from_numpy(rng.uniform(0.5, 2.0, c).astype(np.float32)).to(dev)}
+
+
+def _bn_act_call(mode, x, sc, p):
+    """The mode through the wrapper: (r or y, u), None where not written."""
+    from frp_tpu_torch.ops import bn_act_cuda
+
+    if mode in ("stem", "prelu", "prelu_pad"):
+        got = bn_act_cuda.bn_prelu(x, p["bn"], p["act"],
+                                   bn_next=p["bn_next"] if mode == "stem" else None,
+                                   pad=(1, 1) if mode == "prelu_pad" else None)
+        return got if mode == "stem" else (got, None)
+    return bn_act_cuda.bn_add(x, p["bn"], sc, p["bn_next"],
+                              down_bn=p["down_bn"] if mode.startswith("down") else None,
+                              keep=not mode.endswith("_last"))
+
+
+def _bn_act_f32(mode, x, sc, p):
+    """The twin's chain computed in f32 from the same folds (rounded to x's
+    dtype, as the kernel reads them), unrounded: (r or y, u)."""
+    from frp_tpu_torch.models import nn
+
+    def fold(bn):
+        s, t = nn.bn_fold(bn, x)
+        return s.float(), t.float()
+
+    s, t = fold(p["bn"])
+    v = x.float() * s + t
+    if mode in ("stem", "prelu", "prelu_pad"):
+        a = nn._cast(p["act"], "alpha", x.dtype).float()[:, None, None]
+        v = torch.where(v >= 0, v, a * v)
+        if mode == "prelu_pad":
+            return torch.nn.functional.pad(v, (0, 1, 0, 1)), None
+    else:
+        d = sc.float()
+        if mode.startswith("down"):
+            sd, td = fold(p["down_bn"])
+            d = d * sd + td
+        v = d + v
+    u = None
+    if mode not in ("prelu", "prelu_pad"):
+        s1, t1 = fold(p["bn_next"])
+        u = v * s1 + t1
+    return (None if mode.endswith("_last") else v), u
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The most units in the last place between two tensors of one 16-bit
+    float type (the bit patterns mapped to a monotone integer scale)."""
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    return int((ordered(got) - ordered(want)).abs().max()) if got.numel() else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", R50_SHAPES)
+def test_bn_act_kernel_matches_its_twin_in_f32_rounded_once(cuda, c, h):
+    """Every mode at each of iresnet50's activation shapes, B = 64, bf16:
+    within 1 bf16 ulp of the plain chain computed in f32 and rounded once
+    (identity and down shortcuts, the padded output's zero border
+    included); at f32, equal to the f32 chain. Channels-last outputs of the
+    input's shape (one row and column more when padded)."""
+    from frp_tpu_torch.ops import bn_act_cuda
+
+    rng = np.random.default_rng(c * 1000 + h)
+    layers = {"bn": _bn_dict(rng, c, cuda), "down_bn": _bn_dict(rng, c, cuda),
+              "bn_next": _bn_dict(rng, c, cuda),
+              "act": {"alpha": torch.from_numpy(rng.uniform(0.05, 0.45, c).astype(np.float32)).to(cuda)}}
+    act = torch.from_numpy(rng.normal(0, 1.5, (2, 64, h, h, c)).astype(np.float32)).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, sc = (a.to(dtype).permute(0, 3, 1, 2) for a in act)
+        for mode in BN_ACT_MODES:
+            before = bn_act_cuda.LAUNCHES
+            got = _bn_act_call(mode, x, sc, layers)
+            torch.cuda.synchronize()
+            assert bn_act_cuda.LAUNCHES == before + 1
+            for g, w in zip(got, _bn_act_f32(mode, x, sc, layers)):
+                assert (g is None) == (w is None), mode
+                if w is None:
+                    continue
+                assert g.dtype == dtype and g.shape == w.shape, mode
+                assert g.is_contiguous(memory_format=torch.channels_last), mode
+                if dtype == torch.float32:
+                    assert torch.equal(g, w), (mode, float((g - w).abs().max()))
+                else:
+                    assert _ulps(g, w.to(dtype)) <= 1, (mode, _ulps(g, w.to(dtype)))
+            if mode == "prelu_pad":
+                assert not got[0][:, :, h].any() and not got[0][..., h].any()
+
+
+@pytest.mark.cuda
+def test_bn_act_refuses_what_it_cannot_take_on_the_card(cuda):
+    """A CUDA activation that is not channels-last, of float16 or float64,
+    or a shortcut of another shape raises before any launch; nothing falls
+    back to the twin."""
+    from frp_tpu_torch.ops import bn_act_cuda
+
+    rng = np.random.default_rng(0)
+    bn = _bn_dict(rng, 64, cuda)
+    act = {"alpha": torch.full((64,), 0.25, device=cuda)}
+    x = torch.randn(2, 64, 8, 8, device=cuda, dtype=torch.bfloat16)
+    before = bn_act_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="channels-last"):
+        bn_act_cuda.bn_prelu(x, bn, act)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="f32 or bf16"):
+            bn_act_cuda.bn_prelu(x.to(dtype).contiguous(memory_format=torch.channels_last), bn, act)
+    with pytest.raises(ValueError, match="shortcut"):
+        x = x.contiguous(memory_format=torch.channels_last)
+        bn_act_cuda.bn_add(x, bn, x[:1], bn)
+    assert bn_act_cuda.LAUNCHES == before
+
+
+def _faces(n: int) -> torch.Tensor:
+    x = np.stack([make_scene(112, np.random.default_rng(40 + i), max_faces=1, portrait=True)[0]
+                  for i in range(n)]).astype(np.float32)
+    return torch.from_numpy((x - 127.5) / 128.0)
+
+
+@pytest.mark.cuda
+def test_iresnet50_forward_through_the_kernel_matches_the_unfused_forward(cuda):
+    """A seeded iresnet50-512 with fitted-looking BN stats on 16 rendered
+    faces: the inference forward (no grad) launches the kernel 1 + 2 x 24 =
+    49 times and, at bf16, its embeddings are at cosine >= 0.9999 of the
+    unfused forward's (the block forward, taken when the input requires
+    grad, which launches none); at f32 within 1e-5."""
+    from frp_tpu_torch.models.iresnet import init_iresnet
+    from frp_tpu_torch.ops import bn_act_cuda
+    from frp_tpu_torch.testing.onnx_export import realistic_stats
+
+    tree = realistic_stats(init_iresnet(5, variant="iresnet50", embed_dim=512), np.random.default_rng(6))
+    params = convert_params(tree, cuda)
+    x = _faces(16).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        before = bn_act_cuda.LAUNCHES
+        with torch.no_grad():
+            got = iresnet_forward(params, xd)
+        assert bn_act_cuda.LAUNCHES == before + 49
+        want = iresnet_forward(params, xd.clone().requires_grad_(True)).detach()
+        assert bn_act_cuda.LAUNCHES == before + 49
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        else:
+            cos = np.sum(got * want, 1) / np.linalg.norm(got, axis=1) / np.linalg.norm(want, axis=1)
+            assert cos.min() >= 0.9999, cos
+
+
+@pytest.mark.cuda
+def test_bn_act_launches_once_for_the_stem_and_twice_a_block(cuda):
+    """LAUNCHES a forward: iresnet18 17 (8 blocks), iresnet50 49 (24
+    blocks), at any batch; a training forward (batch statistics) none."""
+    from frp_tpu_torch.models.iresnet import init_iresnet
+    from frp_tpu_torch.ops import bn_act_cuda
+
+    x = _faces(3).to(cuda)
+    for variant, want in (("iresnet18", 17), ("iresnet50", 49)):
+        params = convert_params(init_iresnet(0, variant=variant, embed_dim=128), cuda)
+        for b in (1, 3):
+            before = bn_act_cuda.LAUNCHES
+            with torch.no_grad():
+                iresnet_forward(params, x[:b])
+            assert bn_act_cuda.LAUNCHES - before == want, (variant, b)
+        before = bn_act_cuda.LAUNCHES
+        iresnet_forward(params, x, train=True)
+        assert bn_act_cuda.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_accuracy_compaction_on_matches_off(cuda, monkeypatch):
     """The accuracy engine at full width on 8 rendered 640 scenes (128 slots:

@@ -31,7 +31,7 @@ from frp_tpu_torch.models import mobilefacenet as tmfn
 from frp_tpu_torch.models import mobilenetv3 as tmnv3
 from frp_tpu_torch.models import retinaface as tret
 from frp_tpu_torch.models.params import convert_params, flatten_params, load_params
-from frp_tpu_torch.ops import align_cuda, detection_cuda, nms_cuda
+from frp_tpu_torch.ops import align_cuda, bn_act_cuda, detection_cuda, nms_cuda
 from frp_tpu_torch.ops.anchors import generate_anchors
 from frp_tpu_torch.testing import synthetic as tsyn
 from frp_tpu_torch.utils.fingerprint import weights_fingerprint
@@ -218,7 +218,7 @@ def test_port_imports_no_jax_nor_frp_tpu():
 
 
 def test_plain_path_launches_nothing_and_wrappers_never_fall_back():
-    for mod in (detection_cuda, align_cuda, nms_cuda):
+    for mod in (detection_cuda, align_cuda, nms_cuda, bn_act_cuda):
         mod.LAUNCHES = 0
     rng = np.random.default_rng(0)
     pay = np.zeros((1, 8, 19), np.float32)
@@ -229,10 +229,15 @@ def test_plain_path_launches_nothing_and_wrappers_never_fall_back():
         torch.from_numpy(rng.integers(0, 255, (1, 32, 32, 3), dtype=np.uint8)),
         torch.tensor([[[[1.0, 0, 0], [0, 1.0, 0]]]]), 8)
     nms_cuda.greedy_suppress(torch.rand(1, 8, 8), torch.ones(1, 8, dtype=torch.bool))
-    assert (detection_cuda.LAUNCHES, align_cuda.LAUNCHES, nms_cuda.LAUNCHES) == (0, 0, 0)
+    bn = {"gamma": torch.ones(8), "beta": torch.zeros(8), "mean": torch.zeros(8), "var": torch.ones(8)}
+    x8 = torch.rand(1, 4, 4, 8).permute(0, 3, 1, 2)
+    bn_act_cuda.bn_prelu(x8, bn, {"alpha": torch.full((8,), 0.25)}, bn_next=bn)
+    bn_act_cuda.bn_add(x8, bn, x8, bn, down_bn=bn)
+    assert (detection_cuda.LAUNCHES, align_cuda.LAUNCHES, nms_cuda.LAUNCHES,
+            bn_act_cuda.LAUNCHES) == (0, 0, 0, 0)
     # no try/except anywhere in the wrapper modules: a kernel that fails to
     # build or launch raises, it never falls back to the plain version
-    for mod in (detection_cuda, align_cuda, nms_cuda):
+    for mod in (detection_cuda, align_cuda, nms_cuda, bn_act_cuda):
         tree = ast.parse(inspect.getsource(mod))
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], mod.__name__
     # the kernel entries refuse CPU tensors instead of computing anything
@@ -242,4 +247,9 @@ def test_plain_path_launches_nothing_and_wrappers_never_fall_back():
         align_cuda.warp_crops_kernel(torch.zeros(1, 8, 8, 3, dtype=torch.uint8), torch.zeros(1, 1, 2, 3), 4)
     with pytest.raises(ValueError):
         nms_cuda.greedy_suppress_kernel(torch.rand(1, 8, 8), torch.ones(1, 8, dtype=torch.bool))
-    assert (detection_cuda.LAUNCHES, align_cuda.LAUNCHES, nms_cuda.LAUNCHES) == (0, 0, 0)
+    with pytest.raises(ValueError):
+        bn_act_cuda._launch(bn_act_cuda.PRELU | bn_act_cuda.WRITE_R, x8, None,
+                            {"s": torch.ones(8), "t": torch.zeros(8), "a": torch.ones(8)}, None,
+                            (True, False))
+    assert (detection_cuda.LAUNCHES, align_cuda.LAUNCHES, nms_cuda.LAUNCHES,
+            bn_act_cuda.LAUNCHES) == (0, 0, 0, 0)
