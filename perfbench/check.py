@@ -12,14 +12,20 @@ Discrete answers, an exact comparison (limit 0), ``answers_off`` counts:
   detection threshold by ``MARGIN`` (a bfloat16 score moves by 0.02 at
   most on the card, so a face this clear of the threshold is no tie);
 - a pair whose program picked a gallery entry more than ``PICK_SLACK``
-  beyond the reference's nearest one in the reference's distances (a
-  nearer pick is a near tie that rounding may flip: a sound bfloat16 run's
-  distances stray up to 0.035 from the reference's on the card, where it
-  keeps a neighbouring anchor, so two entries may trade places within
-  twice that);
+  beyond the nearest one in the reference's distances (a nearer pick is a
+  near tie that rounding may flip);
 - a pair whose match decision disagrees with the reference's distance to
   the picked entry, where that distance is clear of the tolerance by
   ``PICK_SLACK``.
+
+The embedder and the spoof net are judged on the crops they were given:
+the reference's distances and spoof probability of a pair are those of the
+crop cut at the program's own landmarks (``Reference.faces``' ``judged``),
+while the landmarks themselves are judged by ``ldm``. Against the
+reference's own crop, a detector's tie would be judged twice: where a
+bfloat16 detector keeps a neighbouring anchor of equal score, its
+landmarks move 2-3 px, and a crop cut there moved a sound pick 0.107
+beyond the nearest entry.
 
 Precision, each the median (``_p50``) and the 90th percentile (``_p90``)
 over the pairs: ``box`` and ``ldm``, a pair's largest coordinate gap in
@@ -69,13 +75,20 @@ def log_odds(p) -> float:
     return float(np.log(p / (1.0 - p)))
 
 
+def landmarks(result: dict) -> list:
+    """A frame's [n, 10] landmarks of the valid faces of a result dict, in
+    slot order: what ``Reference.faces`` cuts the judged crops at."""
+    return [np.asarray(lm, np.float32)[np.asarray(v, bool)]
+            for lm, v in zip(result["landmarks"], result["valid"])]
+
+
 def compare(programs: list, references: list, cfg: dict) -> dict:
     """``programs``: the program's result dicts of the sampled batches
     (boxes [B, M, 4], landmarks, scores, valid, best_idx, best_distance,
     is_match, fake_prob); ``references``: for each, a list a frame of the
-    reference's faces (``Reference.faces``). Returns the numbers of
-    ``ORDER`` but ``frame_off``, the largest gaps, and ``faces``, the pairs
-    compared."""
+    reference's faces (``Reference.faces`` with the program's
+    ``landmarks``). Returns the numbers of ``ORDER`` but ``frame_off``, the
+    largest gaps, and ``faces``, the pairs compared."""
     conf, tol = cfg["conf_thresh"], cfg["tolerance"]
     gaps: dict = {k: [] for k in GAPS}
     idx_gap = 0.0
@@ -102,8 +115,10 @@ def compare(programs: list, references: list, cfg: dict) -> dict:
                 gaps["ldm"].append(float(np.abs(np.asarray(prog["landmarks"][f][m])
                                                 - ref["landmarks"][r]).max()))
                 gaps["score"].append(abs(float(prog["scores"][f][m]) - float(ref["scores"][r])))
-                gaps["fake"].append(abs(log_odds(prog["fake_prob"][f][m]) - log_odds(ref["fake_prob"][r])))
-                rd = ref["distances"][r]
+                judged = ref["judged"]
+                gaps["fake"].append(abs(log_odds(prog["fake_prob"][f][m])
+                                        - log_odds(judged["fake_prob"][j])))
+                rd = judged["distances"][j]
                 bi = int(prog["best_idx"][f][m])
                 if not 0 <= bi < len(rd):
                     why.append(("entry out of range", f, bi))

@@ -7,9 +7,11 @@ A cell (``BENCHMARK.json``'s ``workloads``) names a configuration, found
 as ``perfbench/configs/<config>.json`` through ``configs``' ``file``, and
 a traffic mix, ``perfbench/traffic/<traffic>.json``. Its limits on the
 numbers that decide ``correct`` are ``perfbench/limits/<cell>.json``. Each
-per-layer metric is read by ``perfbench/metrics/<metric>.py`` and each
-hand-written kernel's work is counted by ``perfbench/kernels/<kernel>.py``:
-a later change adds a cell, a metric or a kernel as a new file.
+per-layer metric is read by ``perfbench/metrics/<metric>.py``, each
+hand-written kernel's work is counted by ``perfbench/kernels/<kernel>.py``
+and an embedder that ``perfbench/reference/nets.py`` lacks is brought by
+``perfbench/reference/embedders/<name>.py``: a later change adds a cell, a
+metric, a kernel or an embedder as a new file.
 """
 
 from __future__ import annotations

@@ -55,8 +55,8 @@ def control_numbers(spec: dict, seed: int, device) -> dict:
         ctl = Reference(cfg, wdir, dev, "fp8")
         for k in ks:
             yuv = stream.reference_i420(scene, k, ticks, cfg["det_size"], rows)
-            refs.append(ref.faces(yuv, gal))
             ctls.append(check.as_results(ctl.faces(yuv, gal), cfg))
+            refs.append(ref.faces(yuv, gal, check.landmarks(ctls[-1])))
     return check.compare(ctls, refs, cfg)
 
 

@@ -1,5 +1,5 @@
 """Useful model FLOPs of a batch, counted by ``FlopCounterMode`` over the
-benchmark's own reference networks (``perfbench/reference/nets.py``) on
+benchmark's own reference networks (``perfbench/reference/``) on
 meta tensors: the detector at each frame's full square, the embedder and
 the spoof net at each valid face, and each face's match against every
 gallery entry. They count the work the results need, whatever implements
@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from perfbench.reference import nets
+from perfbench.reference import embedders, nets
 from perfbench.reference.pipeline import load_npz
 
 PEAK_BF16_DENSE = 989e12  # one H100 SXM, bf16 dense, at 700 W
@@ -36,7 +36,8 @@ def per_frame_and_face(cfg: dict, weights_dir: str, gallery_size: int) -> tuple[
     crop = torch.zeros((1, c, c, 3), device=meta)
     q, g = torch.zeros((1, d), device=meta), torch.zeros((gallery_size, d), device=meta)
     f_det = _count(lambda: nets.retinaface(det, frame))
-    f_face = (_count(lambda: nets.EMBEDDERS[cfg["embedder_arch"]](emb, crop))
+    embed = embedders.resolve(cfg["embedder_arch"]).forward
+    f_face = (_count(lambda: embed(emb, crop))
               + _count(lambda: nets.mobilenetv3(spoof, crop))
               + _count(lambda: q @ g.T))
     return f_det, f_face

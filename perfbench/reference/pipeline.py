@@ -23,7 +23,7 @@ import math
 import numpy as np
 import torch
 
-from perfbench.reference import nets
+from perfbench.reference import embedders, nets
 from perfbench.reference.precision import ROUNDING
 
 ARCFACE_112 = np.array([[38.2946, 51.6963], [73.5318, 51.5014], [56.0252, 71.7366],
@@ -244,41 +244,58 @@ class Reference:
         self.det = load_npz(f"{weights_dir}/{files['detector']}", device)
         self.emb = load_npz(f"{weights_dir}/{files['embedder']}", device)
         self.spoof = load_npz(f"{weights_dir}/{files['spoof']}", device)
-        self.embed_fn = nets.EMBEDDERS[cfg["embedder_arch"]]
+        self.embed_fn = embedders.resolve(cfg["embedder_arch"]).forward
         self.priors = priors(cfg["det_size"], device)
 
     @torch.no_grad()
-    def faces(self, yuv: np.ndarray, gallery: np.ndarray, block: int = 64) -> list:
+    def faces(self, yuv: np.ndarray, gallery: np.ndarray, landmarks: list | None = None,
+              block: int = 64) -> list:
         """I420 frames [B, rows * 3 / 2, S] -> a list a frame of dicts of
         numpy arrays: boxes, landmarks, scores, fake_prob, embeddings [n, D]
-        (unit norm) and distances [n, N] to the gallery [N, D]."""
-        cfg, q = self.cfg, self.q
+        (unit norm) and distances [n, N] to the gallery [N, D]. With
+        ``landmarks`` (a frame's [m, 10] px of the faces of the results
+        being judged), also ``judged``: the fake_prob [m] and distances
+        [m, N] of the crops cut at those landmarks, so that the embedder and
+        the spoof net are judged on the crops they were given."""
+        cfg = self.cfg
         rgb = i420_to_rgb(torch.from_numpy(np.ascontiguousarray(yuv)).to(self.device),
                           cfg["det_size"])
         dets = []
         for i in range(0, rgb.shape[0], 8):
-            dets += detect(self.det, rgb[i:i + 8], self.priors, cfg, q)
+            dets += detect(self.det, rgb[i:i + 8], self.priors, cfg, self.q)
         gal = torch.from_numpy(np.asarray(gallery, np.float64)).to(self.device)
-        mean = torch.tensor(IMAGENET_MEAN, device=self.device)
-        std = torch.tensor(IMAGENET_STD, device=self.device)
         out = []
         for f, (boxes, lms, scores) in enumerate(dets):
-            cr = crops(rgb[f], lms)
-            embs, fakes = [], []
-            for i in range(0, cr.shape[0], block):
-                c = cr[i:i + block]
-                embs.append(self.embed_fn(self.emb, (c - 127.5) / 128.0, q))
-                logits = nets.mobilenetv3(self.spoof, (c - mean) / std, q)
-                fakes.append(torch.softmax(logits, -1)[:, 1])
-            d = cfg["embed_dim"]
-            emb = (torch.cat(embs) if embs else torch.zeros((0, d), device=self.device))
-            unit = emb.double()
-            emb = unit * cfg["distance_scale"]
-            dist = torch.cdist(emb, gal) if emb.shape[0] else emb.new_zeros((0, gal.shape[0]))
+            unit, fake, dist = self._describe(rgb[f], lms, gal, block)
             out.append({
                 "boxes": boxes.cpu().numpy(), "landmarks": lms.cpu().numpy(),
-                "scores": scores.cpu().numpy(),
-                "fake_prob": (torch.cat(fakes) if fakes else torch.zeros(0)).cpu().numpy(),
+                "scores": scores.cpu().numpy(), "fake_prob": fake.cpu().numpy(),
                 "embeddings": unit.cpu().numpy(), "distances": dist.cpu().numpy(),
             })
+            if landmarks is not None:
+                at = torch.as_tensor(np.asarray(landmarks[f], np.float32).reshape(-1, 10),
+                                     device=self.device)
+                _, fake, dist = self._describe(rgb[f], at, gal, block)
+                out[-1]["judged"] = {"fake_prob": fake.cpu().numpy(),
+                                     "distances": dist.cpu().numpy()}
         return out
+
+    def _describe(self, frame, lms, gal, block: int):
+        """The unit embeddings, spoof probabilities and gallery distances of
+        the crops of ``frame`` cut at ``lms`` [n, 10]."""
+        cfg, q = self.cfg, self.q
+        mean = torch.tensor(IMAGENET_MEAN, device=self.device)
+        std = torch.tensor(IMAGENET_STD, device=self.device)
+        cr = crops(frame, lms)
+        embs, fakes = [], []
+        for i in range(0, cr.shape[0], block):
+            c = cr[i:i + block]
+            embs.append(self.embed_fn(self.emb, (c - 127.5) / 128.0, q))
+            logits = nets.mobilenetv3(self.spoof, (c - mean) / std, q)
+            fakes.append(torch.softmax(logits, -1)[:, 1])
+        d = cfg["embed_dim"]
+        unit = (torch.cat(embs) if embs else torch.zeros((0, d), device=self.device)).double()
+        emb = unit * cfg["distance_scale"]
+        dist = torch.cdist(emb, gal) if emb.shape[0] else emb.new_zeros((0, gal.shape[0]))
+        fake = torch.cat(fakes) if fakes else torch.zeros(0)
+        return unit, fake, dist

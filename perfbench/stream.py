@@ -23,10 +23,19 @@ before the program is built.
 
 The stream starts with a keyframe and runs ``warm_batches`` before the
 window opens; the window closes at the first fetch that ends
-``seconds`` after it opened. ``faces_per_s`` is the faces in the results of
-every batch fetched in the window over its length. With ``--trace 1`` the
-stream runs on for ``trace_seconds`` under ``torch.profiler`` after the
-window (the traced slice).
+``seconds`` after it opened.
+
+- Untraced (``--trace 0``): the window opens with nothing in flight and
+  closes when every batch it sent has been fetched, under a profile of
+  the device's activity alone (``trace.BusyTrace``).
+  ``faces_per_busy_s`` is the faces in the results of every batch the
+  window sent over the seconds the card was busy in it: the work of
+  those batches and no other.
+- Traced (``--trace 1``): the window opens at depth ``depth``, as the
+  program's bench runs, and ``faces_per_s`` is the faces of every batch
+  fetched in it over its wall-clock length (the per-layer
+  ``faces_per_s.wall``); the stream then runs on for ``trace_seconds``
+  under ``torch.profiler`` (the traced slice).
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ import time
 import numpy as np
 
 from perfbench import common, scene as scene_mod
-from perfbench.trace import DeviceTrace, Spans
+from perfbench.trace import BusyTrace, DeviceTrace, Spans
 
 
 class Producer:
@@ -289,12 +298,18 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device="cuda",
         return t1
 
     group, depth = tr["group"], tr["depth"]
-    dt = None
-    if trace:  # the profiler's first start loads CUPTI: in set-up, not in the window
+    dt = busy = None
+    # the profiler's first start loads CUPTI: in set-up, not in the window
+    if trace:
         warm = DeviceTrace()
         warm.start()
         warm.stop()
         dt = DeviceTrace()
+    elif dev.type == "cuda":
+        warm = BusyTrace()
+        warm.start()
+        warm.stop()
+        busy = BusyTrace()
     t_open = t_close = None
     stats0 = None
     fetched = 0
@@ -314,14 +329,29 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device="cuda",
                 if fetched >= tr["warm_batches"]:
                     common.log("warm-up batches a second by group: " + ", ".join(
                         f"{group / (b - a):.1f}" for a, b in zip(warm_ends, warm_ends[1:])))
+                    if not trace:  # the untraced window sends its own batches only
+                        fetch(len(inflight))
+                        if busy is not None:
+                            busy.start()
+                        t_end = time.perf_counter()
                     t_open = t_end
                     setup_s = common.process_age_s()
                     stats0 = dict(eng.embed_stats)
+                    if not trace:
+                        for _ in range(depth):
+                            submit()
                 continue
             if t_close is None:
                 window.extend((k, t_end, int(results[k]["count"].sum())) for k in ks)
                 if t_end - t_open >= seconds:
                     t_close = t_end
+                    if not trace:  # send nothing more; every batch sent is the window's
+                        ks = [k for k, _ in inflight]
+                        t_end = fetch(len(inflight))
+                        window.extend((k, t_end, int(results[k]["count"].sum())) for k in ks)
+                        t_close = t_end
+                        if busy is not None:
+                            busy.stop()
                     stats1 = dict(eng.embed_stats)
                     if dt is None:
                         break
@@ -350,8 +380,10 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device="cuda",
         torch.cuda.empty_cache()
 
     faces = sum(w[2] for w in window)
+    busy_s = busy.busy_s() if busy is not None else None
     rec = {
-        "e2e": {"faces_per_s": faces / (t_close - t_open), "setup_s": setup_s},
+        "e2e": {"faces_per_busy_s": faces / busy_s if busy_s else None, "setup_s": setup_s},
+        "faces_per_s": faces / (t_close - t_open),
         "attempted": len(window), "failed": 0,
         "window": (t_open, t_close), "spans": spans, "trace": dt,
         "embed_stats": {k: stats1[k] - stats0[k] for k in stats1},
@@ -361,7 +393,8 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device="cuda",
                    "S": cfg["det_size"], "C": cfg["crop_size"]},
         "weights_dir": wdir, "gallery_size": len(gal),
     }
-    common.log(f"window {t_close - t_open:.2f} s, {len(window)} batches, {faces} faces")
+    common.log(f"window {t_close - t_open:.2f} s, {len(window)} batches, {faces} faces"
+               + (f", card busy {busy_s:.3f} s" if busy_s else ""))
     span = (t_close - t_open) / 4
     common.log("batches a second by quarter of the window: " + ", ".join(
         f"{sum(1 for w in window if t_open + i * span < w[1] <= t_open + (i + 1) * span) / span:.1f}"
@@ -395,7 +428,8 @@ def check_stream(spec, seed, scene, rows, results, window, resident, last_k, gal
     ks = sample(window, ticks, scene.period, tr["check_batches"], seed)
     with float32_matmuls():
         ref = Reference(cfg, wdir, dev)
-        refs = [ref.faces(reference_i420(scene, k, ticks, cfg["det_size"], rows), gal)
+        refs = [ref.faces(reference_i420(scene, k, ticks, cfg["det_size"], rows), gal,
+                          check.landmarks(results[k]))
                 for k in ks]
     numbers = check.compare([results[k] for k in ks], refs, cfg)
     want = reference_i420(scene, last_k, ticks, cfg["det_size"], rows)

@@ -34,7 +34,9 @@ def test_scene_is_a_function_of_the_seed(static_faces):
 def test_scene_is_the_program_bench_scene():
     from frp_tpu_torch.bench import Scene as BenchScene
 
-    ours = Scene(np.random.default_rng(7), _scene_params(cameras=2, walker_path=list(range(8))))
+    # the bench's parameters: its 8-position walk and its faces of 150-240 px half-size
+    ours = Scene(np.random.default_rng(7), _scene_params(cameras=2, walker_path=list(range(8)),
+                                                         face_half_size=[150, 240]))
     theirs = BenchScene(np.random.default_rng(7), cameras=2)
     for _ in range(3):
         assert ours.advance() == theirs.advance()

@@ -46,7 +46,7 @@ def test_new_files_are_found_without_an_edit(tmp_path):
     bench["end_to_end"][0]["workloads"].append("mfn.crowd")
     bench["per_layer"].append({"name": "fetch_ms.stream", "unit": "ms", "better": "lower",
                                "source": "program_span", "layer": "engine calls",
-                               "moves": "faces_per_s", "workloads": ["mfn.crowd"]})
+                               "moves": "faces_per_busy_s", "workloads": ["mfn.crowd"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
 
     spec = common.load_cell("mfn.crowd", root=str(tmp_path))
@@ -73,7 +73,7 @@ def test_nothing_a_cell_loads_is_jax_or_the_reference_package():
     code = (
         "import sys, json\n"
         "from perfbench import common, run, stream, control, flops, check, trace, weights\n"
-        "from perfbench.reference import pipeline, nets, precision\n"
+        "from perfbench.reference import pipeline, nets, precision, embedders\n"
         "import frp_tpu_torch.engine.pipeline, frp_tpu_torch.engine.batching, frp_tpu_torch.ops\n"
         f"for c in {CELLS!r}:\n"
         "    spec = common.load_cell(c)\n"
@@ -95,7 +95,7 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in glob.glob(os.path.join(ROOT, "perfbench/reference/*.py")):
+    for path in glob.glob(os.path.join(ROOT, "perfbench/reference/**/*.py"), recursive=True):
         tree = ast.parse(open(path).read())
         names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
         names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
@@ -188,6 +188,21 @@ def test_a_fault_in_the_timed_path_is_not_correct(cell, fault):
     result, rows, _ = run.execute(tiny(cell), 2**33 + 17, 2.0, False, device="cpu", fault=fault)
     assert result["correct"] is (fault is None), rows
     assert list(result)[-1] == "checks"
+
+
+def test_the_untraced_window_sends_its_own_batches():
+    """The window opens with nothing in flight and counts every batch it
+    sent, fetched after it closed too; on the CPU no card is busy."""
+    from perfbench import run
+
+    spec = tiny(CELLS[0])
+    result, rows, rec = run.execute(spec, 2**33 + 19, 1.0, False, device="cpu")
+    assert result["correct"], rows
+    ks = [k for k, _, _ in rec["batches"]]
+    assert ks == list(range(ks[0], ks[0] + len(ks)))
+    assert ks[0] == spec["traffic"]["warm_batches"] + spec["traffic"]["depth"] + 1
+    assert len(ks) >= spec["traffic"]["depth"] + spec["traffic"]["group"]
+    assert result["metrics"]["faces_per_busy_s"]["value"] is None
 
 
 def test_the_control_fails_the_cells_limits():

@@ -1,7 +1,8 @@
 """The metric arithmetic on synthetic traces: the union of device
 intervals, the idle share and its gaps labelled by host spans, the kernels'
-roofline share, the whole step's share of the peak, and the kernel files'
-counts against ``chip_smoke.py::bound`` at the kernel table's shapes."""
+roofline share with each kernel's peak, the card's busy time,
+and the kernel files' counts against ``chip_smoke.py::bound`` at the kernel
+table's shapes."""
 
 import pytest
 
@@ -67,15 +68,68 @@ def test_roofline_reader_counts_each_launch_at_the_cell_shapes():
     assert _reader("kernels_roofline")(run) is None
 
 
-def test_step_mfu_reader(monkeypatch):
-    from perfbench import flops
+SHAPES = {"B": 16, "K": 256, "M": 16, "S": 640, "C": 112}
+THREE = [("detection_head_kernel(float const*, float*, int)", 0.0, 12.9 * US),
+         ("warp_crops_kernel(unsigned char const*, float const*, float*, int)", 1e-3, 1e-3 + 28.1 * US),
+         ("warp_crops_kernel(unsigned char const*, float const*, float*, int)", 2e-3, 2e-3 + 28.3 * US),
+         ("greedy_nms_kernel(float const*, unsigned char*, int)", 3e-3, 3e-3 + 10.5 * US),
+         ("void at::native::elementwise_kernel<128, 4>", 4e-3, 5e-3)]
 
-    monkeypatch.setattr(flops, "per_frame_and_face", lambda cfg, wdir, n: (2e9, 5e8))
-    run = {"spec": {"config": {}}, "weights_dir": "", "gallery_size": 100,
-           "frames_per_batch": 16, "window": (10.0, 12.0),
-           "batches": [(1, 10.5, 192), (2, 11.0, 190), (3, 12.0, 0)]}
-    work = 3 * 16 * 2e9 + (192 + 190) * 5e8
-    assert _reader("step_mfu")(run) == pytest.approx(100 * work / (2.0 * 989e12))
+
+def test_roofline_of_the_three_kernels_reads_as_before_kernels_had_peaks():
+    # the value measured on the same trace before a counts file could set its peak
+    run = {"trace": FakeTrace(THREE, 0.0, 6e-3), "shapes": SHAPES}
+    assert _reader("kernels_roofline")(run) == 44.52846743724963
+
+
+@pytest.mark.parametrize("peak_line,want", [
+    ("PEAK_OPS_PER_S = 989e12", 50.0),
+    ("", 100 * 989e9 / 67e12 / 2e-3),  # no peak: the float32 rate
+    ("PEAK_OPS_PER_S = 900e12", None),  # not a data-sheet rate
+])
+def test_a_kernel_is_counted_at_its_own_peak(tmp_path, monkeypatch, peak_line, want):
+    (tmp_path / "perfbench/kernels").mkdir(parents=True)
+    (tmp_path / "perfbench/kernels/gemm.py").write_text(
+        f"NAME = 'gemm'\nPATTERN = r'\\bgemm_bf16\\b'\n{peak_line}\n\n\n"
+        "def work(shapes):\n    return 1.0, 989e9\n")
+    counts = common.kernel_counts
+    monkeypatch.setattr(common, "kernel_counts", lambda: counts(root=str(tmp_path)))
+    run = {"trace": FakeTrace([("gemm_bf16", 0.0, 2e-3)], 0.0, 3e-3), "shapes": SHAPES}
+    if want is None:
+        with pytest.raises(SystemExit, match="gemm.py: PEAK_OPS_PER_S 9e"):
+            _reader("kernels_roofline")(run)
+    else:
+        assert _reader("kernels_roofline")(run) == pytest.approx(want)
+
+
+class KinetoEv:
+    def __init__(self, device, start_us, end_us, annotation=False):
+        self.device, self.lo, self.hi, self.annotation = device, start_us, end_us, annotation
+
+    def device_type(self):
+        return self.device
+
+    def start_ns(self):
+        return self.lo * 1000
+
+    def end_ns(self):
+        return self.hi * 1000
+
+    def is_user_annotation(self):
+        return self.annotation
+
+
+def test_device_busy_s_takes_the_union_of_the_devices_events():
+    events = [KinetoEv("cuda", 0, 100), KinetoEv("cuda", 50, 150), KinetoEv("cuda", 300, 310),
+              KinetoEv("cpu", 0, 1000),  # a runtime call on the host
+              KinetoEv("cuda", 0, 1000, annotation=True)]  # a range over the kernels
+    assert trace.device_busy_s(events, "cuda") == pytest.approx(160 * US)
+    assert trace.device_busy_s([], "cuda") == 0.0
+
+
+def test_the_wall_rate_reader():
+    assert _reader("faces_per_s.wall")({"batches": [(1, 1.0, 5)], "faces_per_s": 7.5}) == 7.5
+    assert _reader("faces_per_s.wall")({"batches": [], "faces_per_s": 0.0}) is None
 
 
 def test_span_readers_take_the_window():

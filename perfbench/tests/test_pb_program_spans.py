@@ -117,7 +117,21 @@ def test_syncs_per_batch_counts_blocking_calls_nested_in_the_calls():
     assert _read("syncs_per_batch", run) == pytest.approx(1.0)
 
 
-@pytest.mark.parametrize("name", [f"stage_ms.{s}" for s in STAGES] + ["syncs_per_batch"])
+def test_busy_mfu_takes_a_batchs_device_time(monkeypatch):
+    from perfbench import flops
+
+    monkeypatch.setattr(flops, "per_frame_and_face", lambda cfg, wdir, n: (2e9, 5e8))
+    run = _run([_batch(), _batch(2.0), _fetch(redo_embed_us=300.0),
+                Ev("frp.put_payload", [("Memcpy HtoD (Pinned -> Device)", 999)])])
+    run.update(spec={"config": {}}, weights_dir="", gallery_size=100, frames_per_batch=16,
+               batches=[(1, 10.5, 192), (2, 11.0, 190)])
+    work = 16 * 2e9 + 191 * 5e8
+    per_batch_s = (1930 * 3 + 300) / 1e6 / 2
+    assert _read("busy_mfu", run) == pytest.approx(100 * work / (per_batch_s * 989e12))
+
+
+@pytest.mark.parametrize("name", [f"stage_ms.{s}" for s in STAGES]
+                         + ["syncs_per_batch", "busy_mfu"])
 def test_span_readers_find_nothing_without_the_programs_spans(name):
     # the parent program: host ops and kernels, no frp.* span
     run = _run([_op(100.0), Ev("cudaStreamSynchronize")])
@@ -151,6 +165,8 @@ def test_a_traced_run_on_the_cpu_reads_the_programs_spans():
     for stage in STAGES:
         assert got[f"stage_ms.{stage}"]["value"] == 0.0, stage
     assert got["syncs_per_batch"]["value"] == 0.0
+    assert "busy_mfu" not in got  # no kernel on the CPU: nothing to read
+    assert got["faces_per_s.wall"]["value"] == pytest.approx(rec["faces_per_s"])
     faces = sum(f for _, _, f in rec["batches"])
     assert faces and got["embed_slot_share"]["value"] == pytest.approx(
         100 * faces / rec["embed_stats"]["slots"])

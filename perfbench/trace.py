@@ -155,3 +155,38 @@ class DeviceTrace:
         """The device events that are kernels (no memcpy or memset)."""
         return [e for e in self.events
                 if not e[0].startswith(("Memcpy", "Memset", "cudaMemcpy", "cudaMemset"))]
+
+
+def device_busy_s(events, cuda) -> float:
+    """The union, in seconds, of the device's events among a profile's raw
+    events (``_KinetoEvent``: kernels, copies and memsets on device type
+    ``cuda``; no user annotation)."""
+    return union_length((e.start_ns() / 1e9, e.end_ns() / 1e9) for e in events
+                        if e.device_type() == cuda and not e.is_user_annotation())
+
+
+class BusyTrace:
+    """``torch.profiler`` with the device's activity alone over
+    [start(), stop()], so that no host operator is recorded and slowed;
+    ``busy_s()`` is the union of the device's intervals."""
+
+    def __init__(self):
+        self.prof = None
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+
+    def stop(self) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+
+    def busy_s(self) -> float:
+        import torch
+
+        return device_busy_s(self.prof.profiler.kineto_results.events(),
+                             torch.autograd.DeviceType.CUDA)

@@ -12,8 +12,10 @@ import math
 import numpy as np
 import torch
 
+from perfbench.reference import embedders
 from perfbench.reference.nets import IRESNET_DEPTHS
 
+KINDS = ("conv", "dense", "gamma", "beta", "mean", "var", "alpha", "zero")
 WIDTHS = (64, 128, 256, 512)
 
 
@@ -93,6 +95,16 @@ def draw(leaves: dict, seed: int, device) -> dict:
 
 
 def write_seeded(path: str, spec: dict, seed: int, device) -> None:
-    arrays = draw(iresnet_leaves(spec["arch"], spec["embed_dim"]), seed, device)
+    """The weights file of ``spec``'s arch and embedding width, its leaves
+    from the arch's reference embedder (``reference/embedders``)."""
+    arch = spec["arch"]
+    leaves_of = embedders.resolve(arch).leaves
+    if leaves_of is None:
+        raise SystemExit(f"no seeded weights can be drawn for arch {arch!r}")
+    leaves = leaves_of(arch, spec["embed_dim"])
+    odd = sorted(k for k, (_, kind) in leaves.items() if kind not in KINDS)
+    if odd:
+        raise SystemExit(f"arch {arch!r}: leaves {odd} are of no kind in {KINDS}")
+    arrays = draw(leaves, seed, device)
     with open(path, "wb") as f:
         np.savez(f, **arrays)
