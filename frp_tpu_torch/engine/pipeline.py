@@ -11,7 +11,7 @@ decode + ``nms_padded_batched``, so every call launches kernel 3).
       └ detect: RetinaFace -> top-K -> fused head    (ops/detection_cuda.py, kernel 1)
       └ crop: 5-point similarity -> bilinear warp    (ops/align_cuda.py, kernel 2)
               + quality scores
-      └ embed: MobileFaceNet, or iresnet (+ flip-TTA), x distance scale,
+      └ embed: MobileFaceNet, iresnet or ViT (+ flip-TTA), x distance scale,
                MobileNetV3 spoof; valid slots compacted into a rung
       └ match_pack: gallery match, packed [B, M, 22]
     fetch: one device->host copy, unpacked on the host
@@ -39,6 +39,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import json
 import os
 import threading
@@ -53,7 +54,7 @@ from frp_tpu_torch.config import Config, get_config
 from frp_tpu_torch.engine.batching import DeltaEncoder, DeltaPayload, letterbox
 from frp_tpu_torch.engine.gallery import DeviceGallery
 from frp_tpu_torch.models import nn
-from frp_tpu_torch.models.iresnet import init_iresnet, iresnet_forward
+from frp_tpu_torch.models.iresnet import IRESNET_VARIANTS, init_iresnet, iresnet_forward
 from frp_tpu_torch.models.mobilefacenet import init_mobilefacenet, mobilefacenet_forward
 from frp_tpu_torch.models.mobilenetv3 import init_mobilenetv3_small, mobilenetv3_forward
 from frp_tpu_torch.models.params import (
@@ -65,6 +66,7 @@ from frp_tpu_torch.models.params import (
     same_structure,
 )
 from frp_tpu_torch.models.retinaface import init_retinaface, retinaface_forward
+from frp_tpu_torch.models.vit import VIT_VARIANTS, init_vit, vit_forward
 from frp_tpu_torch.ops.align import (
     ARCFACE_TEMPLATE_112,
     similarity_transform,
@@ -90,6 +92,8 @@ from frp_tpu_torch.utils.profiling import span
 logger = get_logger("frp.engine")
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# the config's embedder_arch values the engine builds
+EMBEDDER_ARCHS = ("mobilefacenet", *IRESNET_VARIANTS, *VIT_VARIANTS)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -161,8 +165,8 @@ def build_stages(
     to the card. The detect stage's head is the fused detection head
     (kernel 1), as the JAX stages' on a TPU; ``fused_head=False`` takes
     decode + ``nms_padded_batched`` (kernel 3), the head of the JAX
-    ``build_pipeline``. ``embedder_forward`` is MobileFaceNet's or
-    iresnet's forward; ``flip_tta`` adds a forward of the mirrored crops.
+    ``build_pipeline``. ``embedder_forward`` is MobileFaceNet's, iresnet's
+    or the ViT's forward; ``flip_tta`` adds a forward of the mirrored crops.
     The embed stage's compaction (``embed_compact_rungs``) reads
     FRP_EMBED_COMPACT and FRP_EMBED_RUNGS here, once; ``compact=False``
     leaves it out whatever they say (``build_pipeline``, as the JAX one)."""
@@ -578,7 +582,12 @@ class RecognitionEngine:
     ``frp.ingest``, ``frp.delta_ingest``, ``frp.detect``, ``frp.crop``,
     ``frp.embed`` (embedder and spoof net) and ``frp.match_pack`` or
     ``frp.match``; in a fetch ``frp.to_host`` around each device-to-host
-    copy and ``frp.redo`` around a redo's embed and match.
+    copy and ``frp.redo`` around a redo's embed and match. A ViT embedder
+    opens ``frp.vit.attn``, ``frp.vit.sdpa`` and ``frp.vit.mlp`` in each
+    block inside ``frp.embed`` (``models/vit.py``).
+
+    ``cfg.embedder_arch`` is one of ``EMBEDDER_ARCHS``; any other raises
+    ValueError naming them.
 
     ``with_spoof=False`` builds the stages without the spoof net: results
     carry no ``fake_prob`` (the packed column is zeros) and encode_image's
@@ -610,12 +619,18 @@ class RecognitionEngine:
         arch = self.cfg.embedder_arch
         self._allow_stale_calibration = allow_stale_calibration
         self.preferred_fmt = "yuv420"
-        if arch.startswith("iresnet"):
+        if arch in IRESNET_VARIANTS:
             embedder = init_iresnet(seed + 1, variant=arch, embed_dim=self.cfg.embed_dim)
             self._embedder_forward = iresnet_forward
-        else:
+        elif arch in VIT_VARIANTS:
+            embedder = init_vit(seed + 1, variant=arch, embed_dim=self.cfg.embed_dim)
+            self._embedder_forward = functools.partial(vit_forward,
+                                                       heads=VIT_VARIANTS[arch]["heads"])
+        elif arch == "mobilefacenet":
             embedder = init_mobilefacenet(seed + 1, embed_dim=self.cfg.embed_dim)
             self._embedder_forward = mobilefacenet_forward
+        else:
+            raise ValueError(f"embedder_arch {arch!r}: one of {list(EMBEDDER_ARCHS)}")
         host_params = {
             "detector": init_retinaface(seed),
             "embedder": embedder,

@@ -31,6 +31,7 @@ _DEPTHS = {
     "iresnet100": (3, 13, 30, 3),
 }
 _WIDTHS = (64, 128, 256, 512)
+IRESNET_VARIANTS = tuple(_DEPTHS)
 
 
 def _block_init(rng, cin, cout, stride):

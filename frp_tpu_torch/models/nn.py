@@ -302,6 +302,20 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, _cast(p, "w", x.dtype)) + _cast(p, "b", x.dtype)
 
 
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ w.T, plus b where p has one, inside the GEMM; p["w"]
+    stored [out, in]."""
+    b = _cast(p, "b", x.dtype) if "b" in p else None
+    return F.linear(x, _cast(p, "w", x.dtype), b)
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over x's last axis with p["gamma"] and p["beta"] cast to
+    x's dtype (torch's kernel takes the statistics in f32)."""
+    return F.layer_norm(x, x.shape[-1:], _cast(p, "gamma", x.dtype), _cast(p, "beta", x.dtype),
+                        eps)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> [B, C], mean in f32."""
     return x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)

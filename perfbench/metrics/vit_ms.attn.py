@@ -1,0 +1,11 @@
+"""Device ms a batch of the ViT embedder's ``frp.vit.attn`` spans in the
+traced slice: LN1, qkv, the attention, proj and the residual add of every block
+(``frp_tpu_torch/models/vit.py``), over the slice's batches (its
+``frp.submit_encoded`` spans), a redo's included. None where the
+program opens no such span."""
+
+from perfbench.metrics._program import stage_ms
+
+
+def read(run):
+    return stage_ms(run, "frp.vit.attn")
