@@ -5,7 +5,7 @@
 Phases, each printed on its own lines, in order:
 
 1. device   the card's name, and its name and power limit from nvidia-smi.
-2. build    nvcc builds the four kernels of ``frp_tpu_torch/csrc`` for
+2. build    nvcc builds the five kernels of ``frp_tpu_torch/csrc`` for
             sm_90a, all at once.
 3. kernels  each kernel against its plain PyTorch version on the card at the
             main path's shapes: masks, valid flags and counts bit for bit,
@@ -34,6 +34,16 @@ Phases, each printed on its own lines, in order:
             for each inference forward of an iresnet that the phase ran (17
             for iresnet18, 49 for iresnet50; none for MobileFaceNet),
             counted by a wrapper of ``iresnet_forward`` apart from the pass.
+            The ViT's add-LN pass (add_ln, which replaces no TPU kernel
+            either) at vitl.stream's rung, [1664 x 144, 768] bf16, in its
+            two kinds of site there (``ADD_LN_CASES``): a block's add with
+            the LN after it, r and LN(r) written, and the last add with the
+            float32 final LN, LN(r) alone: r equal to x + d rounded once,
+            LN(r) within 1 bf16 ulp of the kernel's arithmetic in f32
+            rounded once (the plain version ``add_ln_f32``, the same sums in
+            the same order), timed beside it, beside its bound
+            (bytes over 3.35 TB/s) and beside the eager add and LN it
+            replaced.
 4. engine   the port's RecognitionEngine on cuda in the default profile (det
             640, 16 slots, top-256, bf16, spoof and quality on, MobileFaceNet,
             the shipped weights) over a DeltaEncoder stream of 8 rendered 640
@@ -301,7 +311,8 @@ from frp_tpu_torch.engine import batching, pipeline
 from frp_tpu_torch.engine.batching import DeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline, embed_compact_rungs
 from frp_tpu_torch.models import iresnet, nn
-from frp_tpu_torch.ops import align_cuda, bn_act_cuda, cuda_build, detection_cuda, nms_cuda
+from frp_tpu_torch.ops import (add_ln_cuda, align_cuda, bn_act_cuda, cuda_build, detection_cuda,
+                               nms_cuda)
 from frp_tpu_torch.ops import launches as all_launches
 from frp_tpu_torch.ops import reset_launches as reset_all_launches
 from frp_tpu_torch.ops.align import invert_similarity
@@ -832,6 +843,70 @@ def check_bn_act(dev) -> dict:
             library_ms=device_ms(lambda: run("eager"), reps=20, host_bound=True),
             library_max_abs_err=lib_err)
         del x, sc
+        torch.cuda.empty_cache()
+    return out
+
+
+# the ViT's add-LN pass (csrc/add_ln.cu) at vitl.stream's embed rung: 1664
+# faces of 144 tokens, width 768; name -> whether the site is the last (the
+# final LN in float32, r not written)
+ADD_LN_ROWS = 1664 * 144
+ADD_LN_WIDTH = 768
+ADD_LN_CASES = {"block": False, "last": True}
+
+
+def add_ln_call(route: str, x: torch.Tensor, d: torch.Tensor, ln: dict, last: bool) -> tuple:
+    """One site of the pass as (r, LN(r)), r None at the last: route
+    "kernel" launches it, "eager" runs the eager bf16 ops the forward ran
+    before (the plain twin), "f32" the kernel's arithmetic in f32 rounded
+    once (``add_ln_f32``, the plain version it is held to)."""
+    f = {"kernel": add_ln_cuda.add_ln, "eager": add_ln_cuda.add_ln_plain,
+         "f32": add_ln_cuda.add_ln_f32}[route]
+    return f(x, d, ln, 1e-5, last=last)
+
+
+def check_add_ln(dev) -> dict:
+    """The ViT's add-LN pass at vitl.stream's rung, bf16, at each site kind
+    of ``ADD_LN_CASES``: r held equal to the f32 sum rounded once and LN(r)
+    within 1 bf16 ulp of the kernel's arithmetic in f32 rounded once
+    (``add_ln_f32``, the plain version), timed beside it, beside its bound
+    (x and d read once, r and LN(r) written once, over 3.35 TB/s) and
+    beside the eager add and LN the forward ran before (``library_ms``, a
+    yardstick the port no longer runs), with its largest difference from
+    them."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name, last in ADD_LN_CASES.items():
+        w = ADD_LN_WIDTH
+        ln = {"gamma": torch.from_numpy(rng.uniform(0.8, 1.2, w).astype(np.float32)).to(dev),
+              "beta": torch.from_numpy(rng.normal(0, 0.2, w).astype(np.float32)).to(dev)}
+        x, d = (torch.randn((ADD_LN_ROWS, w), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+
+        def run(route):
+            return add_ln_call(route, x, d, ln, last)
+
+        got, want, eager = run("kernel"), run("f32"), run("eager")
+        torch.cuda.synchronize()
+        if (got[0] is None) != last or (not last and not torch.equal(got[0], want[0])):
+            raise AssertionError(f"add_ln {name}: r is not x + d rounded once")
+        ulps = bf16_ulps(got[1], want[1])
+        if ulps > 1:
+            raise AssertionError(f"add_ln {name}: {ulps} bf16 ulps from its f32 arithmetic "
+                                 "rounded once")
+        err, lib_err = max_err(got[1], want[1]), max_err(got[1], eager[1])
+        del got, want, eager
+        n = x.numel()
+        bound_ms, bound_by = bound(2 * (2 * n + (1 if last else 2) * n)
+                                   + 2 * w * (4 if last else 2), 0)
+        out[name] = dict(
+            shape=[ADD_LN_ROWS, w], max_ulps=ulps, max_abs_err=err,
+            ms=device_ms(lambda: run("kernel")), bound_ms=bound_ms, bound_by=bound_by,
+            plain_ms=device_ms(lambda: run("f32"), reps=10, host_bound=True),
+            library_ms=device_ms(lambda: run("eager"), reps=20, host_bound=True),
+            library_max_abs_err=lib_err)
+        del x, d
         torch.cuda.empty_cache()
     return out
 
@@ -3649,6 +3724,14 @@ def main() -> int:
             f"({100 * c['bound_ms'] / c['ms']:.1f} % of it), plain (the f32 chain) "
             f"{c['plain_ms'] * 1e3:.1f} us, the eager bf16 chain it replaced {c['library_ms'] * 1e3:.1f} "
             f"us (max abs diff {c['library_max_abs_err']:.3g})")
+    passes = check_add_ln(dev)
+    for key, c in passes.items():
+        say("kernels", f"add_ln {key} {c['shape']} bf16: r exact, LN(r) within {c['max_ulps']} ulp "
+            f"of its f32 arithmetic rounded once (max abs err {c['max_abs_err']:.3g}); kernel "
+            f"{c['ms'] * 1e3:.1f} us, bound {c['bound_ms'] * 1e3:.1f} us by {c['bound_by']} "
+            f"({100 * c['bound_ms'] / c['ms']:.1f} % of it), plain (add_ln_f32) "
+            f"{c['plain_ms'] * 1e3:.1f} us, the eager add and LN it replaced "
+            f"{c['library_ms'] * 1e3:.1f} us (max abs diff {c['library_max_abs_err']:.3g})")
     shares = {k: nms_call_share(dev, k) for k in (256, 512)}
     for k, c in shares.items():
         say("kernels", f"nms_padded_batched [8, 16800] -> K={k}, 64 above a frame: "
@@ -4119,6 +4202,10 @@ def main() -> int:
                               "imported": imp["chains"],
                               "diagnostics": sum(r["chains"] for r in dg["runs"].values())},
                  **chains})
+    # the ViT's add-LN pass: no TPU kernel, and no phase runs a ViT forward;
+    # its numbers at vitl.stream's shapes (phase 3)
+    rows.append({"name": "add_ln", "route": "cuda", "source": "frp_tpu_torch/csrc/add_ln.cu",
+                 "replaces": None, **passes})
     say("done", f"the whole run took {time.perf_counter() - t_run:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,12 @@ are left out.
 LayerNorms take nn.LayerNorm's eps 1e-5, the head's BN1d eps 2e-5. The
 linears run in the compute dtype with the bias inside the GEMM; the final
 LN and both BN1d run in float32, as the source's ``self.norm(x.float())``.
+Each residual add runs with the LN that reads its sum in one call of
+``ops/add_ln_cuda.add_ln`` (on the card one pass of ``csrc/add_ln.cu``,
+on the CPU the eager ops): the pos_embed add with block 0's LN1, each
+block's proj add with its LN2, each fc2 add with the next block's LN1, and
+the last one with the final LN, whose sum nothing else reads: 2 x depth + 1
+calls a forward.
 
 **The one departure**: the source computes q k^T, the softmax and P v in
 float32 under ``autocast(False)``. Here they run from q, k and v in the
@@ -30,9 +36,11 @@ that only the math backend takes, which would materialise every score in
 float32 ([K, 8, 144, 144]: 1.1 GB at 1664 faces), raises instead of
 running slowly.
 
-Under a profiler each block opens the spans ``frp.vit.attn`` (LN1, qkv,
-attention, proj, the residual add), ``frp.vit.sdpa`` inside it around the
-attention call alone, and ``frp.vit.mlp`` (LN2, fc1, ReLU6, fc2, the add).
+Under a profiler each block opens the spans ``frp.vit.attn`` (qkv,
+attention, proj, the residual add with LN2), ``frp.vit.sdpa`` inside it
+around the attention call alone, and ``frp.vit.mlp`` (fc1, ReLU6, fc2, the
+add with the next block's LN1 or the final LN); the pos_embed add with
+block 0's LN1 runs before the first span.
 
 The parameter tree holds the file's layouts (``convert_params`` makes the
 dense weights [out, in] and the patch conv OIHW); the head count is no
@@ -49,6 +57,7 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from frp_tpu_torch.models import nn
+from frp_tpu_torch.ops import add_ln_cuda
 from frp_tpu_torch.utils.profiling import span
 
 VIT_VARIANTS = {"vit_l": {"width": 768, "depth": 24, "heads": 8, "mlp": 3072, "patch": 9}}
@@ -127,26 +136,30 @@ def vit_forward(params: dict, x: torch.Tensor, heads: int = VIT_VARIANTS["vit_l"
     """x: [K, 112, 112, 3] normalized crops, NHWC, in the compute dtype.
     Returns [K, D] unit float32 embeddings."""
     pe = params["patch_embed"]
+    blocks = params["blocks"]
     kk = x.shape[0]
     width, patch = pe["w"].shape[0], pe["w"].shape[2]
     t = patchify(x, patch)
     y = F.linear(t, _patch_matrix(pe, x.dtype), nn._cast(pe, "b", x.dtype))
-    y = y + nn._cast(params, "pos_embed", x.dtype)
+    # y: the residual stream; u: the LN of it that the next linear reads
+    y, u = add_ln_cuda.add_ln(y, nn._cast(params, "pos_embed", x.dtype), blocks[0]["ln1"], LN_EPS)
     tokens, hd = y.shape[1], width // heads
-    for b in params["blocks"]:
+    for i, b in enumerate(blocks):
+        last = i + 1 == len(blocks)
         with span("frp.vit.attn"):
-            qkv = nn.linear(b["qkv"], nn.layer_norm(b["ln1"], y, LN_EPS))
+            qkv = nn.linear(b["qkv"], u)
             qkv = qkv.view(kk, tokens, 3, heads, hd).permute(2, 0, 3, 1, 4)
             with span("frp.vit.sdpa"), sdpa_kernel(FUSED, set_priority=True):
                 o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
             o = o.transpose(1, 2).reshape(kk, tokens, width)
-            y = y + nn.linear(b["proj"], o)
+            y, u = add_ln_cuda.add_ln(y, nn.linear(b["proj"], o), b["ln2"], LN_EPS)
         with span("frp.vit.mlp"):
-            h = nn.linear(b["fc1"], nn.layer_norm(b["ln2"], y, LN_EPS))
-            y = y + nn.linear(b["fc2"], F.relu6(h, inplace=True))
-    z = nn.layer_norm(params["norm"], y.to(torch.float32), LN_EPS)
+            h = nn.linear(b["fc1"], u)
+            y, u = add_ln_cuda.add_ln(y, nn.linear(b["fc2"], F.relu6(h, inplace=True)),
+                                      params["norm"] if last else blocks[i + 1]["ln1"], LN_EPS,
+                                      last=last)
     head = params["head"]
-    z = nn.linear(head["fc1"], z.reshape(kk, tokens * width).to(x.dtype))
+    z = nn.linear(head["fc1"], u.reshape(kk, tokens * width))
     z = nn.batch_norm(head["bn1"], z.to(torch.float32), eps=BN_EPS)
     z = nn.linear(head["fc2"], z.to(x.dtype))
     z = nn.batch_norm(head["bn2"], z.to(torch.float32), eps=BN_EPS)

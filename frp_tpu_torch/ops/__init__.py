@@ -8,7 +8,7 @@ import importlib
 
 # kernel name -> its wrapper module in this package
 KERNEL_MODULES = {"detection_head": "detection_cuda", "warp_crops": "align_cuda",
-                  "greedy_nms": "nms_cuda", "bn_act": "bn_act_cuda"}
+                  "greedy_nms": "nms_cuda", "bn_act": "bn_act_cuda", "add_ln": "add_ln_cuda"}
 
 
 def _modules() -> dict:

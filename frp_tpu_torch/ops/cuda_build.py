@@ -5,8 +5,9 @@ compiles it for Hopper (``sm_90a``) into a shared library under
 ``build/frp_tpu_torch/`` at the repository root (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited kernel rebuilds and an
 unchanged one is reused. ``ctypes`` loads it; the wrappers in
-``detection_cuda``, ``align_cuda``, ``nms_cuda`` and ``bn_act_cuda`` pass
-tensor pointers and PyTorch's current stream as ``c_void_p``.
+``detection_cuda``, ``align_cuda``, ``nms_cuda``, ``bn_act_cuda`` and
+``add_ln_cuda`` pass tensor pointers and PyTorch's current stream as
+``c_void_p``.
 
 Nothing is compiled or loaded at import. ``build()`` compiles several sources
 in parallel (one ``nvcc`` process each, all started together); the first
@@ -32,11 +33,11 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "frp_tpu_torch")
-KERNELS = ("detection_head", "warp_crops", "greedy_nms", "bn_act")
+KERNELS = ("detection_head", "warp_crops", "greedy_nms", "bn_act", "add_ln")
 # kernels whose library is a ctypes.PyDLL, whose calls hold the interpreter
 # lock: a release costs the calling thread its turn beside a busy Python
 # thread, which a kernel launched dozens of times a forward cannot afford
-KEEP_GIL = frozenset({"bn_act"})
+KEEP_GIL = frozenset({"bn_act", "add_ln"})
 # -fmad=false: every multiply and add rounds on its own, in source order, so
 # the kernels' float decisions (overlap > 1.0, floor of a sample coordinate)
 # match the plain PyTorch versions', which never contract

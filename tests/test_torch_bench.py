@@ -365,7 +365,7 @@ def test_bench_selftest_runs_main_on_the_cpu():
     assert detail["embed_stats_timed"]["redone"] == 0
     assert len(detail["detection_to_alert_ms"]) == 15
     assert detail["kernel_launches"] == {"detection_head": 0, "warp_crops": 0, "greedy_nms": 0,
-                                         "bn_act": 0}
+                                         "bn_act": 0, "add_ln": 0}
 
 
 # --- (e) the device policy --------------------------------------------------
@@ -479,20 +479,24 @@ def test_smoke_phase_holds_the_attempts_line(monkeypatch):
 def test_launch_counts_read_and_clear_the_three_wrappers():
     """``frp_tpu_torch.ops.launches`` (the bench's ``kernel_launches`` and
     chip_smoke.py's counts) reads each kernel wrapper's LAUNCHES under the
-    kernel's name (the three ported kernels' and the iresnet chains' pass,
-    ``bn_act``), and ``reset_launches`` sets them to 0."""
-    from frp_tpu_torch.ops import (align_cuda, bn_act_cuda, detection_cuda, launches, nms_cuda,
-                                   reset_launches)
+    kernel's name (the three ported kernels', the iresnet chains' pass,
+    ``bn_act``, and the ViT's add-LN pass, ``add_ln``), and
+    ``reset_launches`` sets them to 0."""
+    from frp_tpu_torch.ops import (add_ln_cuda, align_cuda, bn_act_cuda, detection_cuda,
+                                   launches, nms_cuda, reset_launches)
 
     saved = launches()
     try:
         detection_cuda.LAUNCHES, align_cuda.LAUNCHES, nms_cuda.LAUNCHES = 3, 2, 1
-        bn_act_cuda.LAUNCHES = 49
-        assert launches() == {"detection_head": 3, "warp_crops": 2, "greedy_nms": 1, "bn_act": 49}
+        bn_act_cuda.LAUNCHES, add_ln_cuda.LAUNCHES = 49, 49
+        assert launches() == {"detection_head": 3, "warp_crops": 2, "greedy_nms": 1, "bn_act": 49,
+                              "add_ln": 49}
         reset_launches()
-        assert launches() == {"detection_head": 0, "warp_crops": 0, "greedy_nms": 0, "bn_act": 0}
+        assert launches() == {"detection_head": 0, "warp_crops": 0, "greedy_nms": 0, "bn_act": 0,
+                              "add_ln": 0}
     finally:
         detection_cuda.LAUNCHES = saved["detection_head"]
         align_cuda.LAUNCHES = saved["warp_crops"]
         nms_cuda.LAUNCHES = saved["greedy_nms"]
         bn_act_cuda.LAUNCHES = saved["bn_act"]
+        add_ln_cuda.LAUNCHES = saved["add_ln"]

@@ -2,7 +2,8 @@
 PyTorch version at the main path's shapes (masks, valid flags and counts bit
 for bit, floats within 1e-3); the accuracy profile's embedder, embed
 compaction and pipelined serving calls against the CPU or the unpipelined
-calls; each trainer's f32 step against the CPU and the bf16 ArcFace loss
+calls; the ViT forward through its add-LN pass against the float32
+reference; each trainer's f32 step against the CPU and the bf16 ArcFace loss
 falling; the serving default (bf16) against the CPU engine at bf16; and the
 deepfake service on the card against the CPU; the engine over a mesh of the
 card against the unsharded engine, and the ArcFace step in a one-rank NCCL
@@ -542,6 +543,152 @@ def test_bn_act_launches_once_for_the_stem_and_twice_a_block(cuda):
         before = bn_act_cuda.LAUNCHES
         iresnet_forward(params, x, train=True)
         assert bn_act_cuda.LAUNCHES == before
+
+
+# --- the ViT's residual add and LayerNorm in one pass (csrc/add_ln.cu) ----------
+
+ADD_LN_SITES = ("pos_embed", "proj", "fc2", "last")
+# f32 against PyTorch's own LayerNorm: |LN(r)| up to about 6 times the
+# relative error another order of the sums leaves in the statistics, about
+# 2**-20 at 768 elements, with a margin of 3
+ADD_LN_F32_ATOL = 3 * 6 * 2.0 ** -20
+
+
+def _add_ln_case(site, k, t, w, dtype, dev, seed=0):
+    """x, d and the LN dict (float32 gamma and beta) of one site: d the
+    pos_embed [T, W] at site 1, [K, T, W] otherwise."""
+    rng = np.random.default_rng(seed + w + k)
+    x = torch.from_numpy(rng.normal(0, 1.0, (k, t, w)).astype(np.float32)).to(dev, dtype)
+    shape = (t, w) if site == "pos_embed" else (k, t, w)
+    d = torch.from_numpy(rng.normal(0, 0.5, shape).astype(np.float32)).to(dev, dtype)
+    ln = {"gamma": torch.from_numpy(rng.uniform(0.8, 1.2, w).astype(np.float32)).to(dev),
+          "beta": torch.from_numpy(rng.normal(0, 0.2, w).astype(np.float32)).to(dev)}
+    return x, d, ln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,t", [(64, 144), (3, 7)])
+@pytest.mark.parametrize("w", [96, 768])
+def test_add_ln_kernel_matches_its_twin_in_f32_rounded_once(cuda, w, k, t):
+    """Every site kind at the test ViT's width and ViT-L's, over a whole
+    number of warps' rows and a ragged one: r equal to x + d rounded once;
+    LN(r) within 1 bf16 ulp of ``add_ln_f32`` (the kernel's arithmetic in
+    f32, rounded once), and equal to it in f32, where it is also within
+    ``ADD_LN_F32_ATOL`` of PyTorch's LayerNorm of r; one launch each,
+    outputs of x's shape and dtype, r left out at the last site."""
+    from frp_tpu_torch.ops import add_ln_cuda
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for site in ADD_LN_SITES:
+            last = site == "last"
+            x, d, ln = _add_ln_case(site, k, t, w, dtype, cuda)
+            before = add_ln_cuda.LAUNCHES
+            r, u = add_ln_cuda.add_ln(x, d, ln, 1e-5, last=last)
+            torch.cuda.synchronize()
+            assert add_ln_cuda.LAUNCHES == before + 1
+            want_r, want_u = add_ln_cuda.add_ln_f32(x, d, ln, 1e-5, last=last)
+            assert (r is None) == last, site
+            if not last:
+                assert r.dtype == dtype and torch.equal(r, want_r), site
+            assert u.dtype == dtype and u.shape == x.shape and u.is_contiguous(), site
+            if dtype == torch.float32:
+                assert torch.equal(u, want_u), (site, float((u - want_u).abs().max()))
+                lib = torch.nn.functional.layer_norm(x + d, (w,), ln["gamma"], ln["beta"], 1e-5)
+                assert float((u - lib).abs().max()) <= ADD_LN_F32_ATOL, site
+            else:
+                assert _ulps(u, want_u) <= 1, (site, _ulps(u, want_u))
+
+
+@pytest.mark.cuda
+def test_add_ln_refuses_what_it_cannot_take_on_the_card(cuda):
+    """A CUDA input of float16, not contiguous, off a 16-byte boundary, a d
+    of another shape, or a width the kernel has no instance for raises
+    before any launch; nothing falls back to the twin."""
+    from frp_tpu_torch.ops import add_ln_cuda
+
+    x, d, ln = _add_ln_case("proj", 2, 8, 96, torch.bfloat16, cuda)
+    before = add_ln_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        add_ln_cuda.add_ln(x.half(), d.half(), ln, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        add_ln_cuda.add_ln(x.transpose(0, 1), d, ln, 1e-5)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(x.numel() + 1, device=cuda, dtype=x.dtype)
+        add_ln_cuda.add_ln(flat[1:].view(x.shape), d, ln, 1e-5)
+    with pytest.raises(ValueError, match="trailing axes"):
+        add_ln_cuda.add_ln(x, d[:1], ln, 1e-5)
+    xw, dw, lw = _add_ln_case("proj", 2, 8, 1032, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="width 1032"):
+        add_ln_cuda.add_ln(xw, dw, lw, 1e-5)
+    assert add_ln_cuda.LAUNCHES == before
+
+
+def _vit_weights(seed: int, sizes: dict, dim: int) -> dict:
+    """tests/test_torch_vit.py's ``_weights``, copied: a seeded ViT tree with
+    larger biases, LN gammas and BN variances U(0.8, 1.2), fc1 at three
+    times its He scale. That file imports ``tests.vit_reference``, which a
+    machine with another top-level ``tests`` package on its path cannot
+    resolve, so this file loads the reference by its path."""
+    from frp_tpu_torch.models import vit
+    from frp_tpu_torch.models.params import _unflatten, flatten_params
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in flatten_params(vit.init_vit(rng, embed_dim=dim, **sizes)).items():
+        last = k.rsplit("/", 1)[-1]
+        if last in ("gamma", "var"):
+            v = rng.uniform(0.8, 1.2, v.shape).astype(np.float32)
+        elif last in ("beta", "b", "mean", "pos_embed"):
+            v = rng.normal(0.0, 0.2, v.shape).astype(np.float32)
+        elif k.startswith("blocks/") and k.endswith("fc1/w"):
+            v = v * 3.0
+        out[k] = v
+    return _unflatten(out)
+
+
+def _vit_tol(depth: int) -> float:
+    """tests/test_torch_vit.py's BF16_TOL at any depth: twice the RMS of
+    8 + 9 x depth independent bf16 roundings (26 at depth 2)."""
+    return 2 * np.sqrt((8 + 9 * depth) / 3) * 2.0 ** -8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["small", "vit_l"])
+def test_vit_forward_through_the_pass_matches_the_reference(cuda, variant):
+    """The ViT forward on the card, the test ViT (width 96, depth 2) and
+    ViT-L at its published widths (768, depth 24), on weights and crops
+    drawn as tests/test_torch_vit.py draws them: the pass launches 2 x
+    depth + 1 times a forward (49 for ViT-L), and the embeddings are within
+    the derived bf16 tolerance of the float32 reference
+    ``tests/vit_reference.py`` (run on the card, TF32 off); at f32 the test
+    ViT within test_torch_vit's 1e-5."""
+    from frp_tpu_torch.models import vit
+    from frp_tpu_torch.models.params import _unflatten, flatten_params
+    from frp_tpu_torch.ops import add_ln_cuda
+    from frp_tpu_torch.ops.image import normalize_face
+
+    spec = importlib.util.spec_from_file_location(
+        "vit_reference", os.path.join(REPO, "tests", "vit_reference.py"))
+    vit_reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vit_reference)
+    small = dict(width=96, depth=2, heads=2, mlp=384, patch=9)
+    sizes, dim, n = (small, 64, 8) if variant == "small" else (vit.VIT_VARIANTS["vit_l"], 512, 16)
+    tree = _vit_weights(7, sizes, dim)
+    dev_tree = _unflatten({k: torch.from_numpy(v).to(cuda)
+                           for k, v in flatten_params(tree).items()})
+    g = torch.Generator().manual_seed(7)
+    x = normalize_face(torch.rand(n, 112, 112, 3, generator=g) * 255.0).to(cuda)
+    want = vit_reference.forward(dev_tree, x, heads=sizes["heads"])
+    params = convert_params(tree, cuda)
+    dtypes = (torch.bfloat16, torch.float32) if variant == "small" else (torch.bfloat16,)
+    for dtype in dtypes:
+        before = add_ln_cuda.LAUNCHES
+        with torch.no_grad():
+            got = vit.vit_forward(params, x.to(dtype), heads=sizes["heads"])
+        assert add_ln_cuda.LAUNCHES == before + 2 * sizes["depth"] + 1
+        dist = float((got - want).norm(dim=1).max())
+        tol = _vit_tol(sizes["depth"]) if dtype == torch.bfloat16 else 1e-5
+        assert got.dtype == torch.float32 and dist <= tol, (dtype, dist, tol)
 
 
 @pytest.mark.cuda
