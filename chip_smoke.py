@@ -312,8 +312,7 @@ from frp_tpu_torch.engine.batching import DeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline, embed_compact_rungs
 from frp_tpu_torch.models import iresnet, nn
 from frp_tpu_torch.ops import (add_ln_cuda, align_cuda, bn_act_cuda, cuda_build, detection_cuda,
-                               nms_cuda)
-from frp_tpu_torch.ops import launches as all_launches
+                               kernels, nms_cuda)
 from frp_tpu_torch.ops import reset_launches as reset_all_launches
 from frp_tpu_torch.ops.align import invert_similarity
 from frp_tpu_torch.ops.anchors import generate_anchors
@@ -343,20 +342,12 @@ WARM = 3  # ticks left out of the steady-state window
 SEED = 0
 ATOL = 1e-3
 
-# each kernel's source and the TPU kernel it replaces; ``launches()`` and
-# ``reset_launches()`` (frp_tpu_torch.ops) read and clear their wrappers' counts
-KERNELS = {
-    "detection_head": ("frp_tpu_torch/csrc/detection_head.cu", "frp_tpu/ops/detection_pallas.py:41"),
-    "warp_crops": ("frp_tpu_torch/csrc/warp_crops.cu", "frp_tpu/ops/align_pallas.py:58"),
-    "greedy_nms": ("frp_tpu_torch/csrc/greedy_nms.cu", "frp_tpu/ops/nms_pallas.py:26"),
-}
-
 
 def launches() -> dict[str, int]:
-    """The three ported kernels' launch counts since the last reset_launches
-    (``KERNELS``); the iresnet chains' pass is counted apart, by
-    ``chain_launches``."""
-    return {name: n for name, n in all_launches().items() if name in KERNELS}
+    """The launch counts since the last reset_launches of the kernels that
+    replace a TPU kernel (their declarations' ``replaces``); the iresnet
+    chains' pass is counted apart, by ``chain_launches``."""
+    return {name: k.launches for name, k in kernels().items() if k.replaces}
 
 
 # the pass's launches owed by the iresnet forwards run on the card since the
@@ -392,7 +383,7 @@ def chain_launches(dev) -> int:
     """bn_act's launches since the last reset_launches. On the card, exactly
     those the iresnet forwards owe: a forward that took the block path
     leaves them short."""
-    n, owed = bn_act_cuda.LAUNCHES, _owed["launches"]
+    n, owed = bn_act_cuda.KERNEL.launches, _owed["launches"]
     if dev.type == "cuda" and n != owed:
         raise AssertionError(f"bn_act launched {n} times; the iresnet forwards on the card "
                              f"owe {owed}")
@@ -1275,8 +1266,8 @@ def run_accuracy(dev, scenes: np.ndarray, ticks: int, warm: int, default_eng: Re
     base = compaction_runs(dev, scenes, PROFILE, default_eng, ticks, warm, rounds)
     n_batches = comp["batches"] + base["batches"]
     got = launches()
-    want = {name: scan["launches"][name] + (n_batches if name != "greedy_nms" else 0)
-            for name in KERNELS}
+    want = {name: n + (n_batches if name != "greedy_nms" else 0)
+            for name, n in scan["launches"].items()}
     if dev.type == "cuda" and got != want:
         raise AssertionError(f"compaction runs: launches {got}, expected {want}")
     scan.update(launches=got, batches=scan["batches"] + n_batches,
@@ -3668,7 +3659,7 @@ def run_diagnostics(dev, size: list = DIAG_SIZE) -> dict:
             runs[(name, "cpu")] = diag_run(name, torch.device("cpu"), "float32", out_dir, size)
             held[name] = hold_diag(name, runs[(name, "float32")], runs[(name, "cpu")])
     total = {k: sum(r["launches"][k] for (n, d), r in runs.items() if d != "cpu")
-             for k in KERNELS}
+             for k in launches()}
     return dict(runs=runs, held=held, launches=total, size=size)
 
 
@@ -4166,22 +4157,22 @@ def main() -> int:
     counts = {name: sum(ph["launches"][name]
                         for ph in (scan, nms, fused, acc, piped, plat, srv, tr, imp, me, hl, sw, ent, bn,
                                    dg))
-              for name in KERNELS}
-    rows = []
-    for name, (source, replaces) in KERNELS.items():
-        c = checks[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-        })
+              for name in launches()}
+
+    def kernel_row(k: cuda_build.Kernel, **fields) -> dict:
+        return {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                **fields}
+
+    ported = {name: kernel_row(k, launches=counts[name], **{key: checks[name][key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        for name, k in kernels().items() if k.replaces}
     # kernel 1 on its second input, all 256 candidates above in a crowd
-    rows[0].update(ms_all_above=crowd["ms"], plain_ms_all_above=crowd["plain_ms"],
-                   max_abs_err_all_above=crowd["max_abs_err"])
+    ported["detection_head"].update(ms_all_above=crowd["ms"], plain_ms_all_above=crowd["plain_ms"],
+                                    max_abs_err_all_above=crowd["max_abs_err"])
     # kernel 3 at K=256 and K=1024, all above in a crowd, and 10 % above
-    rows[2].update({key: c["ms"] for key, c in greedy.items()})
-    rows[2].update({f"nms_call_ms_k{k}": c["call_ms"] for k, c in shares.items()})
+    ported["greedy_nms"].update({key: c["ms"] for key, c in greedy.items()})
+    ported["greedy_nms"].update({f"nms_call_ms_k{k}": c["call_ms"] for k, c in shares.items()})
+    rows = list(ported.values())
     # kernels 2 and 3 at the entry's shapes (phase 16) and kernels 1 and 2 at
     # the bench's (phase 17), each with its phase's launches
     for key, ph, held in (("entry", ent, ent["kernels"]), ("bench", bn, bk["kernels"])):
@@ -4196,16 +4187,12 @@ def main() -> int:
         row["diagnostics_launches"] = dg["launches"][row["name"]]
     # the iresnet chains' pass: no TPU kernel; its launches in the phases that
     # run an iresnet, and its numbers at r50.stream's shapes (phase 3)
-    rows.append({"name": "bn_act", "route": "cuda", "source": "frp_tpu_torch/csrc/bn_act.cu",
-                 "replaces": None,
-                 "launches": {"engine": scan["chains"], "accuracy": acc["chains"],
-                              "imported": imp["chains"],
-                              "diagnostics": sum(r["chains"] for r in dg["runs"].values())},
-                 **chains})
+    rows.append(kernel_row(bn_act_cuda.KERNEL, launches={
+        "engine": scan["chains"], "accuracy": acc["chains"], "imported": imp["chains"],
+        "diagnostics": sum(r["chains"] for r in dg["runs"].values())}, **chains))
     # the ViT's add-LN pass: no TPU kernel, and no phase runs a ViT forward;
     # its numbers at vitl.stream's shapes (phase 3)
-    rows.append({"name": "add_ln", "route": "cuda", "source": "frp_tpu_torch/csrc/add_ln.cu",
-                 "replaces": None, **passes})
+    rows.append(kernel_row(add_ln_cuda.KERNEL, **passes))
     say("done", f"the whole run took {time.perf_counter() - t_run:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

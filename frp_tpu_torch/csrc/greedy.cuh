@@ -1,7 +1,6 @@
 // Greedy NMS suppression over a row-major bitmask: the walk of the fused
 // detection head (detection_head.cu). The stand-alone greedy pass
-// (greedy_nms.cu) has a walk of its own over a column-major mask and builds
-// with this one only under -DFRP_NMS_SHARED_WALK, for measurements.
+// (greedy_nms.cu) has a walk of its own over a column-major mask.
 //
 // Layout: mask[i * words + w] holds bit b set when candidate j = 32*w + b
 // ranks below i (j > i) and overlaps i above the threshold; no bit at or

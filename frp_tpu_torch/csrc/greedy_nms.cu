@@ -52,53 +52,21 @@
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, B=8, 60 % of
 // the candidates above): 10.5 us at K=256, 15.2 us at K=512, 27.0 us at
 // K=1024, of which a launch and the events around it are 5.1 us.
-//
-// Compile-time switches for measurements (testing/kernel_ab.py builds them):
-// -DFRP_NMS_CLUSTER=n blocks a frame, -DFRP_NMS_THREADS=n threads a block,
-// -DFRP_NMS_ROWS=1 one row a turn in a warp's registers instead of two;
-// -DFRP_NMS_NO_WALK leaves the walk out (keep = above), so the rest can be
-// timed alone; -DFRP_NMS_SHARED_WALK is the design measured first: the mask
-// row-major and the walk of greedy.cuh that the detection head uses, which
-// ORs the whole rows of the kept ranks at every word; -DFRP_NMS_CLOCKS has
-// thread 0 of frame 0's block 0 note the SM's cycle counter at eight points,
-// for frp_greedy_nms_clocks to read.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
-#ifdef FRP_NMS_SHARED_WALK
-#include "greedy.cuh"
-#endif
-
 namespace cg = cooperative_groups;
 
 namespace {
 
-#ifndef FRP_NMS_CLUSTER
-#define FRP_NMS_CLUSTER 8
-#endif
-#ifndef FRP_NMS_THREADS
-#define FRP_NMS_THREADS 512
-#endif
-#ifndef FRP_NMS_ROWS
-#define FRP_NMS_ROWS 2
-#endif
-
-constexpr int kCluster = FRP_NMS_CLUSTER;  // blocks a frame
-constexpr int kThreads = FRP_NMS_THREADS;
+constexpr int kCluster = 8;  // blocks a frame
+constexpr int kThreads = 512;
 constexpr int kMaxK = 1024;
 constexpr int kMaxWords = kMaxK / 32;
 constexpr unsigned kFull = 0xffffffffu;
-
-#ifdef FRP_NMS_CLOCKS
-__device__ long long clocks[8];
-#define STAMP(n) \
-  if (blockIdx.x == 0 && threadIdx.x == 0) clocks[n] = clock64()
-#else
-#define STAMP(n)
-#endif
 
 // One row of the overlap in a warp's registers: what the greedy pass can read
 // of it, all loads in flight together. With 16-byte loads, chunk c is columns
@@ -169,7 +137,6 @@ struct Row {
 // Words of shared memory for the mask of `words` words a row.
 __host__ __device__ constexpr int mask_stride(int words) { return 32 * words + 1; }
 
-#ifndef FRP_NMS_SHARED_WALK
 // For each word w with two candidates or more: by[32w + l] = the ranks of
 // word w that suppress rank 32w + l (the transpose of the word's 32 x 32
 // diagonal block, five butterfly stages over the lanes). Rows never written
@@ -230,7 +197,6 @@ __device__ __forceinline__ void walk_columns(const uint32_t* mask, const uint32_
     if (lane == 0) keep_w[w] = kept;
   }
 }
-#endif
 
 template <bool kVec>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
@@ -239,11 +205,8 @@ greedy_nms_kernel(const float* __restrict__ overlap, const uint8_t* __restrict__
   extern __shared__ uint32_t mask[];  // used in block 0 only
   __shared__ uint32_t above_w[kMaxWords];
   __shared__ uint32_t keep_w[kMaxWords];
-#ifndef FRP_NMS_SHARED_WALK
   __shared__ uint32_t by[kMaxK];
-#endif
 
-  STAMP(0);
   cg::cluster_group cluster = cg::this_cluster();
   // every block of the cluster must be running before one writes into
   // another's shared memory: arrive now, wait just before the first write
@@ -263,67 +226,42 @@ greedy_nms_kernel(const float* __restrict__ overlap, const uint8_t* __restrict__
     if (lane == 0) above_w[w] = bits;
   }
   __syncthreads();
-  STAMP(1);
   cluster.barrier_wait();
-  STAMP(2);
 
   uint32_t* mask0 = cluster.map_shared_rank(mask, 0);
   auto is_above = [&](int i) { return i < k && ((above_w[i >> 5] >> (i & 31)) & 1u); };
   auto store = [&](int i, uint32_t mine) {
-#ifdef FRP_NMS_SHARED_WALK
-    if (lane < words) mask0[i * words + lane] = mine;
-#else
     // the walk reads word w of row i only for w >= i / 32 with a candidate above
     if (lane >= (i >> 5) && above_w[lane] != 0u) mask0[lane * mask_stride(words) + i] = mine;
-#endif
   };
   // two rows a turn, so that the second row's loads are in flight while the
   // first is thresholded
   constexpr int kDeal = kCluster * kWarps;
-  for (int i = warp * kCluster + rank; i < k; i += FRP_NMS_ROWS * kDeal) {
-    const bool on0 = is_above(i), on1 = FRP_NMS_ROWS > 1 && is_above(i + kDeal);
+  for (int i = warp * kCluster + rank; i < k; i += 2 * kDeal) {
+    const bool on0 = is_above(i), on1 = is_above(i + kDeal);
     Row<kVec> r0, r1;
     if (on0) r0.load(ov + (size_t)i * k, i, k, above_w, lane);
     if (on1) r1.load(ov + (size_t)(i + kDeal) * k, i + kDeal, k, above_w, lane);
     if (on0) store(i, r0.words(i, k, thresh, lane));
     if (on1) store(i + kDeal, r1.words(i + kDeal, k, thresh, lane));
-#ifdef FRP_NMS_SHARED_WALK
-    // that walk reads row 0 in place of a row it discards
-    if (i == 0 && !on0) store(0, 0u);
-#endif
   }
-  STAMP(3);
   cluster.sync();  // every row has landed in block 0; nobody writes after it
   if (rank != 0) return;
-  STAMP(4);
 
-#if defined(FRP_NMS_NO_WALK)
-  if (threadIdx.x < words) keep_w[threadIdx.x] = above_w[threadIdx.x];
-#elif defined(FRP_NMS_SHARED_WALK)
-  if (warp == 0) warp_greedy_suppress(mask, above_w, keep_w, words);
-#else
   transpose_diagonals(mask, above_w, by, words, warp, kWarps, lane);
   __syncthreads();
-  STAMP(5);
   if (warp == 0) walk_columns(mask, above_w, by, keep_w, words, lane);
-#endif
   __syncthreads();
-  STAMP(6);
 
   for (int j = threadIdx.x; j < k; j += kThreads) {
     keep[(size_t)f * k + j] = (uint8_t)((keep_w[j >> 5] >> (j & 31)) & 1u);
   }
-  STAMP(7);
 }
 
 // Bytes of dynamic shared memory at K.
 size_t mask_bytes(int k) {
   const int words = (k + 31) >> 5;
-#ifdef FRP_NMS_SHARED_WALK
-  return (size_t)k * words * sizeof(uint32_t);
-#else
   return (size_t)words * mask_stride(words) * sizeof(uint32_t);
-#endif
 }
 
 template <bool kVec>
@@ -334,11 +272,6 @@ cudaError_t launch(const float* overlap, const uint8_t* above, uint8_t* keep, in
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(greedy_nms_kernel<kVec>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  if (kCluster > 8) {
-    err = cudaFuncSetAttribute(greedy_nms_kernel<kVec>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   greedy_nms_kernel<kVec><<<b * kCluster, kThreads, smem, stream>>>(overlap, above, keep,
@@ -359,43 +292,3 @@ extern "C" int frp_greedy_nms(const void* overlap, const void* above,
   return (int)fn((const float*)overlap, (const uint8_t*)above, (uint8_t*)keep, b, k,
                  thresh, (cudaStream_t)stream);
 }
-
-// How many clusters of this kernel the card runs at once at K (0 when the
-// query fails): whether a batch of 8 frames gets its SMs in one wave.
-extern "C" int frp_greedy_nms_active_clusters(int k) {
-  const size_t smem = mask_bytes(k);
-  if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(greedy_nms_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return 0;
-  if (kCluster > 8 &&
-      cudaFuncSetAttribute(greedy_nms_kernel<true>,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed,
-                           1) != cudaSuccess)
-    return 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * 64, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, greedy_nms_kernel<true>, &cfg) != cudaSuccess)
-    return 0;
-  return n;
-}
-
-#ifdef FRP_NMS_CLOCKS
-// The cycle counts of the last launch's frame 0, block 0 (waits for the
-// device): entry, above words done, cluster running, own rows done, all rows
-// landed, transposes done, walk done, keep written.
-extern "C" int frp_greedy_nms_clocks(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, clocks, sizeof(clocks));
-}
-#endif

@@ -1,26 +1,29 @@
-"""The port's ops. The CUDA kernels' wrapper modules each count their
-launches in ``LAUNCHES``; ``launches`` and ``reset_launches`` read and clear
-those counts under the kernels' names."""
+"""The port's ops. Each hand-written CUDA kernel is declared once, as
+``KERNEL`` (a ``cuda_build.Kernel``) in its wrapper module ``ops/*_cuda.py``;
+``kernels`` finds the declarations, and ``launches`` and ``reset_launches``
+read and clear their launch counts under the kernels' names."""
 
 from __future__ import annotations
 
+import functools
 import importlib
-
-# kernel name -> its wrapper module in this package
-KERNEL_MODULES = {"detection_head": "detection_cuda", "warp_crops": "align_cuda",
-                  "greedy_nms": "nms_cuda", "bn_act": "bn_act_cuda", "add_ln": "add_ln_cuda"}
+import pkgutil
 
 
-def _modules() -> dict:
-    return {name: importlib.import_module(f"{__name__}.{mod}")
-            for name, mod in KERNEL_MODULES.items()}
+@functools.cache
+def kernels() -> dict:
+    """Every kernel's declaration by name, in name order; the wrapper
+    modules are imported here if they were not yet."""
+    found = [importlib.import_module(f"{__name__}.{m.name}").KERNEL
+             for m in pkgutil.iter_modules(__path__) if m.name.endswith("_cuda")]
+    return {k.name: k for k in sorted(found, key=lambda k: k.name)}
 
 
 def launches() -> dict[str, int]:
     """Each kernel's launch count in this process."""
-    return {name: mod.LAUNCHES for name, mod in _modules().items()}
+    return {name: k.launches for name, k in kernels().items()}
 
 
 def reset_launches() -> None:
-    for mod in _modules().values():
-        mod.LAUNCHES = 0
+    for k in kernels().values():
+        k.launches = 0

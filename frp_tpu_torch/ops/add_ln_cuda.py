@@ -28,9 +28,9 @@ the order of the sums inside the mean and variance (and a correctly rounded
 1 / sqrt for PyTorch's rsqrtf) differs from eager's. ``add_ln_f32`` is the
 twin's arithmetic in f32 in the kernel's order, rounded once: the plain
 version the kernel is held to on the card, bit for bit before the rounding.
-The library is loaded as a ``ctypes.PyDLL`` (``cuda_build.KEEP_GIL``), as
-``bn_act``'s: a launch keeps the interpreter lock. ``LAUNCHES`` counts
-kernel launches: 2 x depth + 1 a ViT forward.
+The library is loaded as a ``ctypes.PyDLL`` (``keep_gil`` in ``KERNEL``), as
+``bn_act``'s: a launch keeps the interpreter lock. ``KERNEL.launches``
+counts kernel launches: 2 x depth + 1 a ViT forward.
 """
 
 from __future__ import annotations
@@ -42,23 +42,12 @@ import torch
 from frp_tpu_torch.models import nn
 from frp_tpu_torch.ops import cuda_build
 
-LAUNCHES = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 1024  # 32 elements a lane of the row's warp (csrc/add_ln.cu kMaxElems)
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.load("add_ln").frp_add_ln
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+KERNEL = cuda_build.Kernel(
+    "add_ln", [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p], keep_gil=True)
 
 
 def add_ln_plain(x: torch.Tensor, d: torch.Tensor, ln: dict, eps: float, last: bool = False):
@@ -151,7 +140,6 @@ def operands(x: torch.Tensor, d: torch.Tensor, gamma: torch.Tensor, beta: torch.
 def add_ln(x: torch.Tensor, d: torch.Tensor, ln: dict, eps: float, last: bool = False):
     """``add_ln_plain``'s (r, LN(r)): the plain twin for CPU tensors, one
     kernel launch for CUDA tensors."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return add_ln_plain(x, d, ln, eps, last)
     if not x.is_cuda:
@@ -162,12 +150,10 @@ def add_ln(x: torch.Tensor, d: torch.Tensor, ln: dict, eps: float, last: bool = 
     r = None if last else torch.empty_like(x)
     out = torch.empty_like(x)
     if x.numel():
-        err = _kernel()(
+        KERNEL(
             _DTYPES[x.dtype], _DTYPES[gamma.dtype], x.data_ptr(), d.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), None if r is None else r.data_ptr(), out.data_ptr(),
             x.numel() // x.shape[-1], d_rows, x.shape[-1], eps,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-        cuda_build.check(err, "add_ln")
-        LAUNCHES += 1
     return r, out

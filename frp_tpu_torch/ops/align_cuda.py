@@ -27,7 +27,7 @@ frame of 45 to 560 px turned up to 40 degrees): 15.2 us, against 38.3 us for
 ``F.grid_sample`` on f32 frames (a yardstick the port never calls).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise. ``LAUNCHES`` counts kernel launches.
+kernel or raise. ``KERNEL.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -38,19 +38,9 @@ import torch
 
 from frp_tpu_torch.ops import cuda_build
 
-LAUNCHES = 0
-
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.load("warp_crops").frp_warp_crops
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+KERNEL = cuda_build.Kernel(
+    "warp_crops", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    replaces="frp_tpu/ops/align_pallas.py:58")
 
 
 def warp_crops_plain(frames: torch.Tensor, inv: torch.Tensor, out_size: int = 112) -> torch.Tensor:
@@ -86,7 +76,6 @@ def warp_crops_plain(frames: torch.Tensor, inv: torch.Tensor, out_size: int = 11
 def warp_crops_kernel(frames: torch.Tensor, inv: torch.Tensor, out_size: int = 112) -> torch.Tensor:
     """Launch ``csrc/warp_crops.cu`` on CUDA uint8 frames [B, H, W, 3]; same
     result as ``warp_crops_plain``."""
-    global LAUNCHES
     if not frames.is_cuda or frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 3:
         raise ValueError("warp_crops_kernel needs CUDA uint8 frames [B, H, W, 3]")
     b, h, w, _ = frames.shape
@@ -100,12 +89,10 @@ def warp_crops_kernel(frames: torch.Tensor, inv: torch.Tensor, out_size: int = 1
     frames = frames.contiguous()
     inv = inv.to(torch.float32).contiguous()
     out = torch.empty((b, m, out_size, out_size, 3), dtype=torch.float32, device=frames.device)
-    err = _kernel()(
+    KERNEL(
         frames.data_ptr(), inv.data_ptr(), out.data_ptr(), b, h, w, m, out_size,
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
-    cuda_build.check(err, "warp_crops")
-    LAUNCHES += 1
     return out
 
 

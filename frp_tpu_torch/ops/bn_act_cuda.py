@@ -29,10 +29,11 @@ a shortcut of another shape, a parameter of another length than C, or a C
 whose 16-byte vectors a pixel do not divide 256. The kernel computes in f32
 and rounds once a store, so in bf16 it agrees with the twin computed in f32
 and rounded once, not with the twin's bf16 roundings between ops. The library
-is loaded as a ``ctypes.PyDLL`` (``cuda_build.KEEP_GIL``): a launch keeps
+is loaded as a ``ctypes.PyDLL`` (``keep_gil`` in ``KERNEL``): a launch keeps
 the interpreter lock, which a release would hand to the engine's producer
-thread for about a millisecond, some 49 times an iresnet50 forward. ``LAUNCHES`` counts kernel
-launches: one for the stem and two a block, 1 + 2 x blocks a forward.
+thread for about a millisecond, some 49 times an iresnet50 forward.
+``KERNEL.launches`` counts kernel launches: one for the stem and two a
+block, 1 + 2 x blocks a forward.
 """
 
 from __future__ import annotations
@@ -45,25 +46,14 @@ import torch.nn.functional as F
 from frp_tpu_torch.models import nn
 from frp_tpu_torch.ops import cuda_build
 
-LAUNCHES = 0
-
 # the kernel's mode bits (csrc/bn_act.cu)
 PRELU, ADD_ID, ADD_DOWN, WRITE_R, NEXT, PAD = 1, 2, 4, 8, 16, 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # a block's threads (csrc/bn_act.cu kThreads)
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.load("bn_act").frp_bn_act
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+KERNEL = cuda_build.Kernel(
+    "bn_act", [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p], keep_gil=True)
 
 
 def bn_prelu_plain(x: torch.Tensor, bn: dict, act: dict, bn_next: dict | None = None,
@@ -135,7 +125,6 @@ def _launch(mode: int, x: torch.Tensor, sc: torch.Tensor | None, params: dict,
             pad: tuple[int, int] | None, outputs: tuple[bool, bool]):
     """Check the operands, allocate the outputs ((r, u), each None where not
     asked), launch once."""
-    global LAUNCHES
     if not x.is_cuda:
         raise ValueError(f"bn_act: the kernel takes CUDA tensors, not {x.device}")
     cv, ho, wo, ptr = operands(x, sc, params, pad)
@@ -148,15 +137,13 @@ def _launch(mode: int, x: torch.Tensor, sc: torch.Tensor | None, params: dict,
     r = out() if outputs[0] else None
     u = out() if outputs[1] else None
     if x.numel():
-        err = _kernel()(
+        KERNEL(
             _DTYPES[x.dtype], mode, x.data_ptr(), None if sc is None else sc.data_ptr(),
             None if r is None else r.data_ptr(), None if u is None else u.data_ptr(),
             ptr["s"], ptr["t"], ptr.get("a"), ptr.get("sd"), ptr.get("td"), ptr.get("s1"),
             ptr.get("t1"), b * ho * wo * cv, cv, h, w, ho, wo,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-        cuda_build.check(err, "bn_act")
-        LAUNCHES += 1
     return r, u
 
 

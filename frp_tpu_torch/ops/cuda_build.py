@@ -1,18 +1,20 @@
-"""Build and load the port's hand-written CUDA kernels (``frp_tpu_torch/csrc``).
+"""Build, load and launch the port's hand-written CUDA kernels
+(``frp_tpu_torch/csrc``).
 
 Each kernel source is one ``.cu`` file with a plain C interface. ``nvcc``
 compiles it for Hopper (``sm_90a``) into a shared library under
 ``build/frp_tpu_torch/`` at the repository root (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited kernel rebuilds and an
-unchanged one is reused. ``ctypes`` loads it; the wrappers in
-``detection_cuda``, ``align_cuda``, ``nms_cuda``, ``bn_act_cuda`` and
-``add_ln_cuda`` pass tensor pointers and PyTorch's current stream as
-``c_void_p``.
+unchanged one is reused. Each kernel is declared once, as a ``Kernel`` at
+module level in its wrapper ``ops/*_cuda.py``: its C entry's argument types
+and whether a launch keeps the interpreter lock. Calling the declaration
+launches the kernel with tensor pointers and PyTorch's current stream as
+``c_void_p``, and counts the launch.
 
 Nothing is compiled or loaded at import. ``build()`` compiles several sources
 in parallel (one ``nvcc`` process each, all started together); the first
-CUDA call of a wrapper whose kernel is not built yet builds every kernel of
-``KERNELS`` not built yet, in one such round.
+launch of a kernel that is not built yet builds every kernel of ``KERNELS``
+(every ``csrc/*.cu``) not built yet, in one such round.
 
 The host library ``csrc/framepack.cpp`` (the frame packer and change
 searches of ``utils/native.py``) is built beside them by ``build_host``, with
@@ -22,6 +24,7 @@ flags.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,11 +36,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "frp_tpu_torch")
-KERNELS = ("detection_head", "warp_crops", "greedy_nms", "bn_act", "add_ln")
-# kernels whose library is a ctypes.PyDLL, whose calls hold the interpreter
-# lock: a release costs the calling thread its turn beside a busy Python
-# thread, which a kernel launched dozens of times a forward cannot afford
-KEEP_GIL = frozenset({"bn_act", "add_ln"})
+KERNELS = tuple(sorted(fn[:-3] for fn in os.listdir(CSRC_DIR) if fn.endswith(".cu")))
 # -fmad=false: every multiply and add rounds on its own, in source order, so
 # the kernels' float decisions (overlap > 1.0, floor of a sample coordinate)
 # match the plain PyTorch versions', which never contract
@@ -137,22 +136,66 @@ def build(names=KERNELS) -> dict[str, float]:
     return times
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if needed (with every
-    other kernel of ``KERNELS`` not built yet): a ``ctypes.PyDLL`` for the
-    kernels of ``KEEP_GIL``, a ``ctypes.CDLL`` for the others."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path = library_path(name)
-            if not os.path.exists(path):
-                build(tuple(dict.fromkeys((name, *KERNELS))))
-            lib = _libs[name] = (ctypes.PyDLL if name in KEEP_GIL else ctypes.CDLL)(path)
-        return lib
+class Kernel:
+    """One hand-written kernel: the C entry ``frp_{name}`` of
+    ``csrc/{name}.cu``, which takes ``argtypes`` and returns a CUDA error
+    code. Calling the declaration launches the kernel: the first call loads
+    the library (building every kernel not built yet, in one round) and binds
+    the entry; a nonzero code raises, and each launch that returns counts in
+    ``launches``.
 
+    ``keep_gil`` loads the library as a ``ctypes.PyDLL``, whose calls hold
+    the interpreter lock: a release costs the calling thread its turn beside
+    a busy Python thread, which a kernel launched dozens of times a forward
+    cannot afford. Otherwise it is a ``ctypes.CDLL``, whose calls release
+    it. ``replaces`` names the TPU kernel of the JAX package that this one
+    ports (None for a pass that replaces none)."""
 
-def check(err: int, what: str) -> None:
-    """Raise when a kernel's C entry reports a CUDA error (its launch was
-    refused or its arguments rejected)."""
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+    def __init__(self, name: str, argtypes, keep_gil: bool = False,
+                 replaces: str | None = None):
+        self.name, self.entry = name, f"frp_{name}"
+        self.source = f"frp_tpu_torch/csrc/{name}.cu"
+        self.argtypes, self.keep_gil, self.replaces = list(argtypes), keep_gil, replaces
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = self._bind(self.library())
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {err}")
+        self.launches += 1
+
+    def library(self) -> ctypes.CDLL:
+        """The loaded library, built first if needed (with every other
+        kernel not built yet)."""
+        with _lock:
+            lib = _libs.get(self.name)
+            if lib is None:
+                path = library_path(self.name)
+                if not os.path.exists(path):
+                    build(tuple(dict.fromkeys((self.name, *KERNELS))))
+                lib = _libs[self.name] = self._load(path)
+            return lib
+
+    def _load(self, path: str) -> ctypes.CDLL:
+        return (ctypes.PyDLL if self.keep_gil else ctypes.CDLL)(path)
+
+    def _bind(self, lib: ctypes.CDLL):
+        fn = getattr(lib, self.entry)
+        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        return fn
+
+    @contextlib.contextmanager
+    def using(self, path: str):
+        """Launch the entry of the library at ``path`` (another build of
+        this kernel, with this signature) in place of this build's, until the
+        block ends."""
+        own = self._fn
+        self._fn = self._bind(self._load(path))
+        try:
+            yield
+        finally:
+            self._fn = own

@@ -32,7 +32,7 @@ frame above the threshold, 15.0 us with all 256 above in a crowd; a
 one-element add timed the same way takes 5.2 us.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise. ``LAUNCHES`` counts kernel launches.
+kernel or raise. ``KERNEL.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -50,20 +50,11 @@ from frp_tpu_torch.ops.topk import top_k
 PAYLOAD = 19
 OUT_COLS = 16
 MAX_K = 256
-LAUNCHES = 0
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.load("detection_head").frp_detection_head
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-            ctypes.c_float] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+KERNEL = cuda_build.Kernel(
+    "detection_head",
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [ctypes.c_void_p],
+    replaces="frp_tpu/ops/detection_pallas.py:41")
 
 
 def build_payload(loc, ldm, scores, priors, k: int) -> torch.Tensor:
@@ -105,7 +96,6 @@ def fused_head_kernel(
     iom_thresh: float, image_size: float,
 ) -> torch.Tensor:
     """Launch ``csrc/detection_head.cu``; same result as ``fused_head_plain``."""
-    global LAUNCHES
     if not payload.is_cuda or payload.dtype != torch.float32 or payload.dim() != 3:
         raise ValueError("fused_head_kernel needs a CUDA f32 [B, K, 19] payload")
     b, k, cols = payload.shape
@@ -115,13 +105,11 @@ def fused_head_kernel(
             f"takes [B, K<={MAX_K}, {PAYLOAD}] and M <= K")
     payload = payload.contiguous()
     out = torch.empty((b, max_out, OUT_COLS), dtype=torch.float32, device=payload.device)
-    err = _kernel()(
+    KERNEL(
         payload.data_ptr(), out.data_ptr(), b, k, max_out, float(conf_thresh),
         float(iou_thresh), float(iom_thresh), float(image_size),
         torch.cuda.current_stream(payload.device).cuda_stream,
     )
-    cuda_build.check(err, "detection_head")
-    LAUNCHES += 1
     return out
 
 

@@ -38,7 +38,7 @@ takes 5.1 us. The one-block kernel it replaces took 24.2, 71.0 and 249.2 us
 at K=256, 512 and 1024 in one run with it (``testing/kernel_ab.py``).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise. ``LAUNCHES`` counts kernel launches.
+kernel or raise. ``KERNEL.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -50,20 +50,11 @@ import torch
 from frp_tpu_torch.ops import cuda_build
 
 MAX_K = 1024
-LAUNCHES = 0
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.load("greedy_nms").frp_greedy_nms
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+KERNEL = cuda_build.Kernel(
+    "greedy_nms",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    replaces="frp_tpu/ops/nms_pallas.py:26")
 
 
 def greedy_suppress_plain(
@@ -88,7 +79,6 @@ def greedy_suppress_kernel(
 ) -> torch.Tensor:
     """Launch ``csrc/greedy_nms.cu`` on CUDA tensors; same result as
     ``greedy_suppress_plain``."""
-    global LAUNCHES
     if not eff.is_cuda or eff.dtype != torch.float32 or eff.dim() != 3:
         raise ValueError("greedy_suppress_kernel needs a CUDA f32 [B, K, K] overlap")
     b, k, k2 = eff.shape
@@ -101,12 +91,10 @@ def greedy_suppress_kernel(
     # reads and writes: no conversion kernel before or after it
     above = (above if above.dtype == torch.bool else above != 0).contiguous()
     keep = torch.empty((b, k), dtype=torch.bool, device=eff.device)
-    err = _kernel()(
+    KERNEL(
         eff.data_ptr(), above.data_ptr(), keep.data_ptr(), b, k,
         float(thresh), torch.cuda.current_stream(eff.device).cuda_stream,
     )
-    cuda_build.check(err, "greedy_nms")
-    LAUNCHES += 1
     return keep
 
 

@@ -13,18 +13,13 @@ frame; the greedy kernel at K=256, 512 and 1024 with 60 % above, and at K=512
 with all above in a crowd and with 10 % above. Each build is first held
 against the plain version (masks and valid flags bit for bit, floats within
 1e-3), then timed in the order other, this, this, other (median of 50
-launches each, see ``chip_smoke.device_ms``).
+launches each, see ``chip_smoke.device_ms``). The other build takes the
+place of this one through its declaration (``cuda_build.Kernel.using``),
+which names its C entry.
 
 ``--sweep`` also times the warp on 16 faces a frame of one size and rotation,
 centred in the frame, over a grid of sizes (source px an output px) and
 rotations: where the two builds differ depends on both.
-
-``--variants`` also builds this tree's greedy kernel with its compile-time
-switches (``csrc/greedy_nms.cu``: blocks a frame, threads a block, the walk
-left out) and times each between the two runs of "this"; a build without the
-walk is timed, not checked. It prints how many clusters of each build the
-card runs at once and, from the build with stop points, the SM cycles that
-frame 0's first block spends in each part of one launch.
 
 Prints one line per input and one JSON object.
 """
@@ -32,7 +27,7 @@ Prints one line per input and one JSON object.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
 import json
 import os
 import subprocess
@@ -42,69 +37,46 @@ import numpy as np
 import torch
 
 import chip_smoke
-from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, nms_cuda
-
-# name -> -D flags of a build of this tree's greedy_nms.cu
-GREEDY_VARIANTS = {
-    "cluster16": ("-DFRP_NMS_CLUSTER=16",),
-    "cluster4": ("-DFRP_NMS_CLUSTER=4",),
-    "cluster1_1024t": ("-DFRP_NMS_CLUSTER=1", "-DFRP_NMS_THREADS=1024"),
-    "1024t": ("-DFRP_NMS_THREADS=1024",),
-    "256t": ("-DFRP_NMS_THREADS=256",),
-    "one_row": ("-DFRP_NMS_ROWS=1",),
-    "shared_walk": ("-DFRP_NMS_SHARED_WALK",),
-    "no_walk": ("-DFRP_NMS_NO_WALK",),
-    "clocks": ("-DFRP_NMS_CLOCKS",),
-}
-CLOCK_SPANS = ("above words", "cluster running", "own rows", "all rows landed",
-               "transposes", "walk", "keep written")
-UNCHECKED = ("no_walk",)
+from frp_tpu_torch.ops import align_cuda, cuda_build, detection_cuda, kernels, nms_cuda
 
 
-def start_build(root: str, name: str, tag: str = "other", defines=()):
+def start_build(root: str, name: str):
     """Start nvcc on a kernel source of the checkout at `root`, with this
-    tree's flags and `defines`, into this tree's build directory. Returns
-    (process, library path) for ``finish_build``."""
+    tree's flags, into this tree's build directory. Returns (process,
+    library path) for ``finish_build``."""
     src = os.path.join(root, "frp_tpu_torch", "csrc", f"{name}.cu")
-    out = os.path.join(cuda_build.BUILD_DIR, f"lib{tag}_{name}.so")
+    out = os.path.join(cuda_build.BUILD_DIR, f"libother_{name}.so")
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, *defines, "-o", out, src]
+    cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", out, src]
     return subprocess.Popen(cmd), out
 
 
-def finish_build(started) -> ctypes.CDLL:
+def finish_build(started) -> str:
     proc, out = started
     if proc.wait() != 0:
         raise RuntimeError(f"nvcc failed for {out}")
-    return ctypes.CDLL(out)
+    return out
 
 
-def compare(name: str, module, builds: dict, kernel, plain, flags=None, unchecked=()) -> dict:
-    """Hold every build of one kernel against `plain()`, then time them.
-    `module` is the wrapper module (``detection_cuda``, ``align_cuda``,
-    ``nms_cuda``) whose entry point `kernel()` launches; `builds` maps a name
-    to a C entry point ("this" is the module's own), and each takes its place
-    in turn: first to last, then last to first, so every build is timed
-    twice."""
-    own = module._kernel()
-    builds = {**builds, "this": own}
-    for fn in builds.values():
-        fn.argtypes, fn.restype = own.argtypes, own.restype
+def compare(name: str, declared: cuda_build.Kernel, other: dict, kernel, plain,
+            flags=None) -> dict:
+    """Hold both builds of one kernel against `plain()`, then time them.
+    `declared` is the kernel's declaration, which `kernel()` launches;
+    `other` maps a kernel's name to the path of the other checkout's
+    library, whose build takes this one's place in turn: other, this, this,
+    other, so each build is timed twice."""
     want = plain()
-    order = sorted(builds, key=lambda n: (n != "other", n != "this"))
-    times = {which: [] for which in order}
-    for which in [*order, *reversed(order)]:
-        module._fn = builds[which]
-        got = kernel()
-        torch.cuda.synchronize()
-        if which not in unchecked:
+    times = {"other": [], "this": []}
+    for which in ("other", "this", "this", "other"):
+        with declared.using(other[declared.name]) if which == "other" else contextlib.nullcontext():
+            got = kernel()
+            torch.cuda.synchronize()
             if flags is not None and not torch.equal(flags(got), flags(want)):
                 raise AssertionError(f"{name} ({which}): flags differ from the plain version")
             err = chip_smoke.max_err(got, want)
             if not err <= chip_smoke.ATOL:
                 raise AssertionError(f"{name} ({which}): max abs err {err}")
-        times[which].append(chip_smoke.device_ms(kernel))
-    module._fn = own
+            times[which].append(chip_smoke.device_ms(kernel))
     print(f"[ab] {name}: " + "; ".join(
         f"{which} {', '.join(f'{t * 1e3:.1f}' for t in ts)} us" for which, ts in times.items()),
         flush=True)
@@ -115,35 +87,24 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="root of the checkout to compare with")
     ap.add_argument("--sweep", action="store_true", help="time the warp over face sizes and rotations")
-    ap.add_argument("--variants", action="store_true",
-                    help="time the greedy kernel's compile-time variants too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: needs an NVIDIA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     print(chip_smoke.gpu_name_and_limit(), flush=True)
-    entries = {"detection_head": "frp_detection_head", "warp_crops": "frp_warp_crops",
-               "greedy_nms": "frp_greedy_nms"}
-    started = {name: start_build(args.other, name) for name in entries}
-    here = os.path.dirname(cuda_build.PKG_DIR)
-    variants = GREEDY_VARIANTS if args.variants else {}
-    started_variants = {tag: start_build(here, "greedy_nms", tag, defines)
-                        for tag, defines in variants.items()}
+    # every kernel of the other checkout that this tree declares, built at once
+    started = {name: start_build(args.other, name) for name in kernels()
+               if os.path.exists(os.path.join(args.other, "frp_tpu_torch", "csrc", f"{name}.cu"))}
     cuda_build.build()
-    other = {name: getattr(finish_build(started[name]), entry) for name, entry in entries.items()}
-    variant_libs = {tag: finish_build(st) for tag, st in started_variants.items()}
-    for tag, lib in {"this": cuda_build.load("greedy_nms"), **variant_libs}.items():
-        print(f"[ab] greedy_nms {tag}: clusters the card runs at once at K=256, 512, 1024: "
-              + ", ".join(str(lib.frp_greedy_nms_active_clusters(k)) for k in (256, 512, 1024)),
-              flush=True)
+    other = {name: finish_build(st) for name, st in started.items()}
 
     rows = []
     for crowd in (False, True):
         payload = chip_smoke.head_payload(dev, crowd)
         rows.append(compare(
             "detection_head, all above in a crowd" if crowd else "detection_head, 64 of 256 above",
-            detection_cuda, {"other": other["detection_head"]},
+            detection_cuda.KERNEL, other,
             lambda: detection_cuda.fused_head_kernel(payload, *chip_smoke.HEAD_ARGS),
             lambda: detection_cuda.fused_head_plain(payload, *chip_smoke.HEAD_ARGS),
             flags=lambda out: out[..., 15]))
@@ -151,7 +112,7 @@ def main() -> int:
     frames = torch.from_numpy(scenes).to(dev)
     inv = chip_smoke.warp_faces(dev, *frames.shape[:3])
     rows.append(compare(
-        "warp_crops, 8 x 640 x 640, 16 faces, S=112", align_cuda, {"other": other["warp_crops"]},
+        "warp_crops, 8 x 640 x 640, 16 faces, S=112", align_cuda.KERNEL, other,
         lambda: align_cuda.warp_crops_kernel(frames, inv, 112),
         lambda: align_cuda.warp_crops_plain(frames, inv, 112)))
     if args.sweep:
@@ -163,31 +124,16 @@ def main() -> int:
                 one = chip_smoke.invert_similarity(torch.from_numpy(mats).to(dev))
                 rows.append(compare(
                     f"warp_crops, faces of {px:g} source px an output px turned {th:g} rad",
-                    align_cuda, {"other": other["warp_crops"]},
+                    align_cuda.KERNEL, other,
                     lambda: align_cuda.warp_crops_kernel(frames, one, 112),
                     lambda: align_cuda.warp_crops_plain(frames, one, 112)))
-    greedy_builds = {"other": other["greedy_nms"],
-                     **{tag: lib.frp_greedy_nms for tag, lib in variant_libs.items()}}
     for k, case in ((256, "smoke"), (512, "smoke"), (1024, "smoke"), (512, "crowd"), (512, "sparse")):
         eff, above = chip_smoke.greedy_input(dev, k, case)
         rows.append(compare(
-            f"greedy_nms, B={eff.shape[0]} K={k}, {case}", nms_cuda, greedy_builds,
+            f"greedy_nms, B={eff.shape[0]} K={k}, {case}", nms_cuda.KERNEL, other,
             lambda: nms_cuda.greedy_suppress_kernel(eff, above, 1.0),
             lambda: nms_cuda.greedy_suppress_plain(eff, above, 1.0),
-            flags=lambda out: out, unchecked=UNCHECKED))
-        if "clocks" in variant_libs:
-            # the last launch of the timing above was the other build's: launch
-            # the build with stop points once more and read them
-            own = nms_cuda._kernel()
-            nms_cuda._fn = greedy_builds["clocks"]
-            nms_cuda.greedy_suppress_kernel(eff, above, 1.0)
-            nms_cuda._fn = own
-            stamps = (ctypes.c_longlong * 8)()
-            cuda_build.check(variant_libs["clocks"].frp_greedy_nms_clocks(stamps), "clocks")
-            spans = {name: stamps[i + 1] - stamps[i] for i, name in enumerate(CLOCK_SPANS)}
-            rows[-1]["cycles"] = spans
-            print(f"[ab]   SM cycles of frame 0's block 0, {stamps[7] - stamps[0]} in all: "
-                  + ", ".join(f"{name} {n}" for name, n in spans.items()), flush=True)
+            flags=lambda out: out))
     print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}), flush=True)
     return 0
 

@@ -97,10 +97,10 @@ def test_f32_version_is_the_eager_layer_norm(site, w, dtype):
 @pytest.mark.parametrize("site", SITES)
 def test_the_wrapper_takes_cpu_tensors_to_the_twin(site):
     x, d, ln = _case(site, 96, torch.bfloat16)
-    before = add_ln_cuda.LAUNCHES
+    before = add_ln_cuda.KERNEL.launches
     got = add_ln_cuda.add_ln(x, d, ln, vit.LN_EPS, last=site == "last")
     want = add_ln_cuda.add_ln_plain(x, d, ln, vit.LN_EPS, last=site == "last")
-    assert add_ln_cuda.LAUNCHES == before
+    assert add_ln_cuda.KERNEL.launches == before
     for g, v in zip(got, want):
         assert (g is None and v is None) or torch.equal(g, v)
 

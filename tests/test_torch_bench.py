@@ -478,25 +478,24 @@ def test_smoke_phase_holds_the_attempts_line(monkeypatch):
 
 def test_launch_counts_read_and_clear_the_three_wrappers():
     """``frp_tpu_torch.ops.launches`` (the bench's ``kernel_launches`` and
-    chip_smoke.py's counts) reads each kernel wrapper's LAUNCHES under the
-    kernel's name (the three ported kernels', the iresnet chains' pass,
-    ``bn_act``, and the ViT's add-LN pass, ``add_ln``), and
+    chip_smoke.py's counts) reads each kernel declaration's launch count
+    under the kernel's name (the three ported kernels', the iresnet chains'
+    pass, ``bn_act``, and the ViT's add-LN pass, ``add_ln``), and
     ``reset_launches`` sets them to 0."""
     from frp_tpu_torch.ops import (add_ln_cuda, align_cuda, bn_act_cuda, detection_cuda,
                                    launches, nms_cuda, reset_launches)
 
+    mods = {"detection_head": detection_cuda, "warp_crops": align_cuda, "greedy_nms": nms_cuda,
+            "bn_act": bn_act_cuda, "add_ln": add_ln_cuda}
     saved = launches()
     try:
-        detection_cuda.LAUNCHES, align_cuda.LAUNCHES, nms_cuda.LAUNCHES = 3, 2, 1
-        bn_act_cuda.LAUNCHES, add_ln_cuda.LAUNCHES = 49, 49
+        for mod, n in zip(mods.values(), (3, 2, 1, 49, 49)):
+            mod.KERNEL.launches = n
         assert launches() == {"detection_head": 3, "warp_crops": 2, "greedy_nms": 1, "bn_act": 49,
                               "add_ln": 49}
         reset_launches()
         assert launches() == {"detection_head": 0, "warp_crops": 0, "greedy_nms": 0, "bn_act": 0,
                               "add_ln": 0}
     finally:
-        detection_cuda.LAUNCHES = saved["detection_head"]
-        align_cuda.LAUNCHES = saved["warp_crops"]
-        nms_cuda.LAUNCHES = saved["greedy_nms"]
-        bn_act_cuda.LAUNCHES = saved["bn_act"]
-        add_ln_cuda.LAUNCHES = saved["add_ln"]
+        for name, mod in mods.items():
+            mod.KERNEL.launches = saved[name]

@@ -224,10 +224,10 @@ def test_nms_padded_batched_on_the_card_matches_cpu(cuda, pre_topk):
     scores = torch.from_numpy(np.round(rng.uniform(0, 1, (3, a)), 2).astype(np.float32))
     ldm = torch.from_numpy(rng.uniform(0, 640, (3, a, 10)).astype(np.float32))
     kw = dict(pre_topk=pre_topk, max_out=16)
-    launches = nms_cuda.LAUNCHES
+    launches = nms_cuda.KERNEL.launches
     got = nms_padded_batched(boxes.to(cuda), scores.to(cuda), ldm.to(cuda), **kw)
     one = nms_padded(boxes[0].to(cuda), scores[0].to(cuda), ldm[0].to(cuda), **kw)
-    assert nms_cuda.LAUNCHES == launches + 2
+    assert nms_cuda.KERNEL.launches == launches + 2
     want = nms_padded_batched(boxes, scores, ldm, **kw)
     for key in want:
         # the same f32 ops on the same values: the card's divisions round as the CPU's
@@ -250,14 +250,14 @@ def test_build_pipeline_on_the_card_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         eng = RecognitionEngine(cfg, device=dev)  # the shipped weights, converted for dev
         params, priors = eng.params, eng._priors
-        counts = (nms_cuda.LAUNCHES, align_cuda.LAUNCHES, detection_cuda.LAUNCHES)
+        declared = (nms_cuda.KERNEL, align_cuda.KERNEL, detection_cuda.KERNEL)
+        counts = tuple(k.launches for k in declared)
         with torch.no_grad():
             out = build_pipeline(device=dev, **kw)(
                 params, torch.from_numpy(frames).to(dev), torch.from_numpy(gallery).to(dev),
                 torch.ones(8, dtype=torch.bool, device=dev), priors)
         if dev != "cpu":
-            assert (nms_cuda.LAUNCHES, align_cuda.LAUNCHES, detection_cuda.LAUNCHES) == (
-                counts[0] + 1, counts[1] + 1, counts[2])
+            assert tuple(k.launches for k in declared) == (counts[0] + 1, counts[1] + 1, counts[2])
         outs.append({k: v.cpu().numpy() for k, v in out.items()})
     want, got = outs
     assert want["count"].sum() >= 3
@@ -448,10 +448,10 @@ def test_bn_act_kernel_matches_its_twin_in_f32_rounded_once(cuda, c, h):
     for dtype in (torch.bfloat16, torch.float32):
         x, sc = (a.to(dtype).permute(0, 3, 1, 2) for a in act)
         for mode in BN_ACT_MODES:
-            before = bn_act_cuda.LAUNCHES
+            before = bn_act_cuda.KERNEL.launches
             got = _bn_act_call(mode, x, sc, layers)
             torch.cuda.synchronize()
-            assert bn_act_cuda.LAUNCHES == before + 1
+            assert bn_act_cuda.KERNEL.launches == before + 1
             for g, w in zip(got, _bn_act_f32(mode, x, sc, layers)):
                 assert (g is None) == (w is None), mode
                 if w is None:
@@ -477,7 +477,7 @@ def test_bn_act_refuses_what_it_cannot_take_on_the_card(cuda):
     bn = _bn_dict(rng, 64, cuda)
     act = {"alpha": torch.full((64,), 0.25, device=cuda)}
     x = torch.randn(2, 64, 8, 8, device=cuda, dtype=torch.bfloat16)
-    before = bn_act_cuda.LAUNCHES
+    before = bn_act_cuda.KERNEL.launches
     with pytest.raises(ValueError, match="channels-last"):
         bn_act_cuda.bn_prelu(x, bn, act)
     for dtype in (torch.float16, torch.float64):
@@ -486,7 +486,7 @@ def test_bn_act_refuses_what_it_cannot_take_on_the_card(cuda):
     with pytest.raises(ValueError, match="shortcut"):
         x = x.contiguous(memory_format=torch.channels_last)
         bn_act_cuda.bn_add(x, bn, x[:1], bn)
-    assert bn_act_cuda.LAUNCHES == before
+    assert bn_act_cuda.KERNEL.launches == before
 
 
 def _faces(n: int) -> torch.Tensor:
@@ -511,12 +511,12 @@ def test_iresnet50_forward_through_the_kernel_matches_the_unfused_forward(cuda):
     x = _faces(16).to(cuda)
     for dtype in (torch.bfloat16, torch.float32):
         xd = x.to(dtype)
-        before = bn_act_cuda.LAUNCHES
+        before = bn_act_cuda.KERNEL.launches
         with torch.no_grad():
             got = iresnet_forward(params, xd)
-        assert bn_act_cuda.LAUNCHES == before + 49
+        assert bn_act_cuda.KERNEL.launches == before + 49
         want = iresnet_forward(params, xd.clone().requires_grad_(True)).detach()
-        assert bn_act_cuda.LAUNCHES == before + 49
+        assert bn_act_cuda.KERNEL.launches == before + 49
         got, want = got.cpu().numpy(), want.cpu().numpy()
         if dtype == torch.float32:
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
@@ -527,7 +527,7 @@ def test_iresnet50_forward_through_the_kernel_matches_the_unfused_forward(cuda):
 
 @pytest.mark.cuda
 def test_bn_act_launches_once_for_the_stem_and_twice_a_block(cuda):
-    """LAUNCHES a forward: iresnet18 17 (8 blocks), iresnet50 49 (24
+    """Launches a forward: iresnet18 17 (8 blocks), iresnet50 49 (24
     blocks), at any batch; a training forward (batch statistics) none."""
     from frp_tpu_torch.models.iresnet import init_iresnet
     from frp_tpu_torch.ops import bn_act_cuda
@@ -536,13 +536,13 @@ def test_bn_act_launches_once_for_the_stem_and_twice_a_block(cuda):
     for variant, want in (("iresnet18", 17), ("iresnet50", 49)):
         params = convert_params(init_iresnet(0, variant=variant, embed_dim=128), cuda)
         for b in (1, 3):
-            before = bn_act_cuda.LAUNCHES
+            before = bn_act_cuda.KERNEL.launches
             with torch.no_grad():
                 iresnet_forward(params, x[:b])
-            assert bn_act_cuda.LAUNCHES - before == want, (variant, b)
-        before = bn_act_cuda.LAUNCHES
+            assert bn_act_cuda.KERNEL.launches - before == want, (variant, b)
+        before = bn_act_cuda.KERNEL.launches
         iresnet_forward(params, x, train=True)
-        assert bn_act_cuda.LAUNCHES == before
+        assert bn_act_cuda.KERNEL.launches == before
 
 
 # --- the ViT's residual add and LayerNorm in one pass (csrc/add_ln.cu) ----------
@@ -582,10 +582,10 @@ def test_add_ln_kernel_matches_its_twin_in_f32_rounded_once(cuda, w, k, t):
         for site in ADD_LN_SITES:
             last = site == "last"
             x, d, ln = _add_ln_case(site, k, t, w, dtype, cuda)
-            before = add_ln_cuda.LAUNCHES
+            before = add_ln_cuda.KERNEL.launches
             r, u = add_ln_cuda.add_ln(x, d, ln, 1e-5, last=last)
             torch.cuda.synchronize()
-            assert add_ln_cuda.LAUNCHES == before + 1
+            assert add_ln_cuda.KERNEL.launches == before + 1
             want_r, want_u = add_ln_cuda.add_ln_f32(x, d, ln, 1e-5, last=last)
             assert (r is None) == last, site
             if not last:
@@ -607,7 +607,7 @@ def test_add_ln_refuses_what_it_cannot_take_on_the_card(cuda):
     from frp_tpu_torch.ops import add_ln_cuda
 
     x, d, ln = _add_ln_case("proj", 2, 8, 96, torch.bfloat16, cuda)
-    before = add_ln_cuda.LAUNCHES
+    before = add_ln_cuda.KERNEL.launches
     with pytest.raises(ValueError, match="f32 or bf16"):
         add_ln_cuda.add_ln(x.half(), d.half(), ln, 1e-5)
     with pytest.raises(ValueError, match="contiguous"):
@@ -620,7 +620,7 @@ def test_add_ln_refuses_what_it_cannot_take_on_the_card(cuda):
     xw, dw, lw = _add_ln_case("proj", 2, 8, 1032, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="width 1032"):
         add_ln_cuda.add_ln(xw, dw, lw, 1e-5)
-    assert add_ln_cuda.LAUNCHES == before
+    assert add_ln_cuda.KERNEL.launches == before
 
 
 def _vit_weights(seed: int, sizes: dict, dim: int) -> dict:
@@ -682,10 +682,10 @@ def test_vit_forward_through_the_pass_matches_the_reference(cuda, variant):
     params = convert_params(tree, cuda)
     dtypes = (torch.bfloat16, torch.float32) if variant == "small" else (torch.bfloat16,)
     for dtype in dtypes:
-        before = add_ln_cuda.LAUNCHES
+        before = add_ln_cuda.KERNEL.launches
         with torch.no_grad():
             got = vit.vit_forward(params, x.to(dtype), heads=sizes["heads"])
-        assert add_ln_cuda.LAUNCHES == before + 2 * sizes["depth"] + 1
+        assert add_ln_cuda.KERNEL.launches == before + 2 * sizes["depth"] + 1
         dist = float((got - want).norm(dim=1).max())
         tol = _vit_tol(sizes["depth"]) if dtype == torch.bfloat16 else 1e-5
         assert got.dtype == torch.float32 and dist <= tol, (dtype, dist, tol)
@@ -976,11 +976,11 @@ def test_entry_on_the_card(cuda):
     from frp_tpu_torch.testing.entry import entry
 
     fn, args = entry()
-    warps, greedy = align_cuda.LAUNCHES, nms_cuda.LAUNCHES
+    warps, greedy = align_cuda.KERNEL.launches, nms_cuda.KERNEL.launches
     with torch.no_grad():
         out = fn(*args)
     torch.cuda.synchronize()
-    assert (align_cuda.LAUNCHES - warps, nms_cuda.LAUNCHES - greedy) == (1, 1)
+    assert (align_cuda.KERNEL.launches - warps, nms_cuda.KERNEL.launches - greedy) == (1, 1)
     assert len(out) == 14 and out["embeddings"].shape == (2, 8, 128)
     assert out["topk_idx"].shape == (2, 8, 5) and out["count"].min() > 0
     for key, v in out.items():

@@ -31,7 +31,8 @@ from frp_tpu_torch.models import mobilefacenet as tmfn
 from frp_tpu_torch.models import mobilenetv3 as tmnv3
 from frp_tpu_torch.models import retinaface as tret
 from frp_tpu_torch.models.params import convert_params, flatten_params, load_params
-from frp_tpu_torch.ops import align_cuda, bn_act_cuda, detection_cuda, nms_cuda
+from frp_tpu_torch.ops import (align_cuda, bn_act_cuda, detection_cuda, kernels, launches, nms_cuda,
+                               reset_launches)
 from frp_tpu_torch.ops.anchors import generate_anchors
 from frp_tpu_torch.testing import synthetic as tsyn
 from frp_tpu_torch.utils.fingerprint import weights_fingerprint
@@ -218,8 +219,7 @@ def test_port_imports_no_jax_nor_frp_tpu():
 
 
 def test_plain_path_launches_nothing_and_wrappers_never_fall_back():
-    for mod in (detection_cuda, align_cuda, nms_cuda, bn_act_cuda):
-        mod.LAUNCHES = 0
+    reset_launches()
     rng = np.random.default_rng(0)
     pay = np.zeros((1, 8, 19), np.float32)
     pay[..., 16:18] = 0.1
@@ -233,8 +233,7 @@ def test_plain_path_launches_nothing_and_wrappers_never_fall_back():
     x8 = torch.rand(1, 4, 4, 8).permute(0, 3, 1, 2)
     bn_act_cuda.bn_prelu(x8, bn, {"alpha": torch.full((8,), 0.25)}, bn_next=bn)
     bn_act_cuda.bn_add(x8, bn, x8, bn, down_bn=bn)
-    assert (detection_cuda.LAUNCHES, align_cuda.LAUNCHES, nms_cuda.LAUNCHES,
-            bn_act_cuda.LAUNCHES) == (0, 0, 0, 0)
+    assert launches() == dict.fromkeys(kernels(), 0)
     # no try/except anywhere in the wrapper modules: a kernel that fails to
     # build or launch raises, it never falls back to the plain version
     for mod in (detection_cuda, align_cuda, nms_cuda, bn_act_cuda):
@@ -251,5 +250,4 @@ def test_plain_path_launches_nothing_and_wrappers_never_fall_back():
         bn_act_cuda._launch(bn_act_cuda.PRELU | bn_act_cuda.WRITE_R, x8, None,
                             {"s": torch.ones(8), "t": torch.zeros(8), "a": torch.ones(8)}, None,
                             (True, False))
-    assert (detection_cuda.LAUNCHES, align_cuda.LAUNCHES, nms_cuda.LAUNCHES,
-            bn_act_cuda.LAUNCHES) == (0, 0, 0, 0)
+    assert launches() == dict.fromkeys(kernels(), 0)

@@ -69,9 +69,9 @@ def test_nms_padded_matches_jax_with_score_ties(seed, a, pre_topk, max_out, iom)
     scores[a // 2] = scores[0] = 0.9  # a tie whatever the draw
     ldm = rng.uniform(0, 128, (a, 10)).astype(np.float32)
     kw = dict(pre_topk=pre_topk, max_out=max_out, conf_thresh=0.5, iou_thresh=0.4, iom_thresh=iom)
-    launches = nms_cuda.LAUNCHES
+    launches = nms_cuda.KERNEL.launches
     got = nms_padded(torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(ldm), **kw)
-    assert nms_cuda.LAUNCHES == launches  # CPU tensors: the plain version
+    assert nms_cuda.KERNEL.launches == launches  # CPU tensors: the plain version
     want = j_nms_padded(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(ldm), **kw)
     assert set(got) == set(want)
     for key in ("valid", "count"):
