@@ -19,21 +19,27 @@ Phases, each printed on its own lines, in order:
             K=256, 512 and 1024 with 60 % of the candidates above, and at
             K=512 with all above in a crowd and with 10 % above; a whole
             nms_padded_batched call over the 16800 anchors is timed beside
-            the kernel's share of it. The iresnet chains' pass (bn_act,
-            which replaces no TPU kernel) at r50.stream's rung of 1664
-            faces, bf16, in each of its seven modes where iresnet50 runs it
+            the kernel's share of it. The chains' pass (bn_act, which
+            replaces no TPU kernel) at r50.stream's rung of 1664 faces,
+            bf16, in each of its seven modes where iresnet50 runs it
             (``BN_ACT_CASES``: the stem's BN-PReLU with block 0's bn1 at
             64 x 112 x 112, block 0's pass A into conv2's padded input,
             pass A and the BN-add-BN pass B with the block input and with
             the down shortcut at stage 1 and stage 3, the last block's
-            head_bn alone): each output within 1 bf16 ulp of its chain
+            head_bn alone), and at the cells' 128 frames at det 640 in the
+            detector's modes (BN and leaky ReLU after the stem, into a
+            stride-2 depthwise conv's padded input, at stage 2 and 3 and
+            an SSH conv; BN and PReLU into a padded input, as a real det
+            export runs it): each output within 1 bf16 ulp of its chain
             computed in f32 and rounded once (the plain version), timed
             beside it, beside its bound (bytes over 3.35 TB/s) and beside
             the eager bf16 chain it replaced. Phases 4, 8, 13 and 18 print
             its launches and hold them on the card to exactly 1 + 2 x blocks
             for each inference forward of an iresnet that the phase ran (17
-            for iresnet18, 49 for iresnet50; none for MobileFaceNet),
-            counted by a wrapper of ``iresnet_forward`` apart from the pass.
+            for iresnet18, 49 for iresnet50; none for MobileFaceNet), plus
+            38 for each inference forward of the detector, counted by
+            wrappers of ``iresnet_forward`` and ``retinaface_forward`` apart
+            from the pass.
             The ViT's add-LN pass (add_ln, which replaces no TPU kernel
             either) at vitl.stream's rung, [1664 x 144, 768] bf16, in its
             two kinds of site there (``ADD_LN_CASES``): a block's add with
@@ -310,7 +316,7 @@ from frp_tpu_torch.config import load_config
 from frp_tpu_torch.engine import batching, pipeline
 from frp_tpu_torch.engine.batching import DeltaEncoder
 from frp_tpu_torch.engine.pipeline import RecognitionEngine, build_pipeline, embed_compact_rungs
-from frp_tpu_torch.models import iresnet, nn
+from frp_tpu_torch.models import iresnet, nn, retinaface
 from frp_tpu_torch.ops import (add_ln_cuda, align_cuda, bn_act_cuda, cuda_build, detection_cuda,
                                kernels, nms_cuda)
 from frp_tpu_torch.ops import reset_launches as reset_all_launches
@@ -345,49 +351,74 @@ ATOL = 1e-3
 
 def launches() -> dict[str, int]:
     """The launch counts since the last reset_launches of the kernels that
-    replace a TPU kernel (their declarations' ``replaces``); the iresnet
-    chains' pass is counted apart, by ``chain_launches``."""
+    replace a TPU kernel (their declarations' ``replaces``); the chains'
+    pass is counted apart, by ``chain_launches``."""
     return {name: k.launches for name, k in kernels().items() if k.replaces}
 
 
-# the pass's launches owed by the iresnet forwards run on the card since the
-# last reset_launches: 1 + 2 x blocks an inference forward, counted where the
-# engine and the tools look the forward up, apart from the pass itself
-_owed = {"launches": 0}
+# the pass's launches owed by the inference forwards run on the card since
+# the last reset_launches (1 + 2 x blocks an iresnet forward, 38 a
+# detector's), and those forwards, counted where the engine and the tools
+# look the forwards up, apart from the pass itself
+_owed = {"launches": 0, "iresnet": 0, "detector": 0}
 _owed_lock = threading.Lock()
 
 
+def _owe(model: str, launches: int) -> None:
+    with _owed_lock:
+        _owed["launches"] += launches
+        _owed[model] += 1
+
+
 def count_forwards() -> None:
-    """Wrap ``iresnet_forward`` in its module and in the engine's (before any
-    engine is built) so that each inference forward of a CUDA input adds
-    the launches it owes to ``_owed``; the training forward owes none."""
-    base = iresnet.iresnet_forward
+    """Wrap ``iresnet_forward`` and ``retinaface_forward`` in their modules
+    and in the engine's (before any engine is built) so that each inference
+    forward of a CUDA input adds the launches it owes to ``_owed``; a
+    training forward, or one autograd records, owes none."""
+    base_iresnet, base_detector = iresnet.iresnet_forward, retinaface.retinaface_forward
 
-    def counted(params, x, normalize=True, train=False, bn_group=None):
+    def counted_iresnet(params, x, normalize=True, train=False, bn_group=None):
         if x.is_cuda and not train:
-            with _owed_lock:
-                _owed["launches"] += 1 + 2 * sum(len(stage) for stage in params["stages"])
-        return base(params, x, normalize, train, bn_group)
+            _owe("iresnet", 1 + 2 * sum(len(stage) for stage in params["stages"]))
+        return base_iresnet(params, x, normalize, train, bn_group)
 
-    iresnet.iresnet_forward = pipeline.iresnet_forward = counted
+    def counted_detector(params, x):
+        if x.is_cuda and not nn.records_grad(params, x):
+            # the stem, two a depthwise-separable pair, the FPN's convs, two an SSH
+            _owe("detector", 1 + 2 * sum(len(params[s]) for s in ("stage1", "stage2", "stage3"))
+                 + len(params["fpn_lat"]) + len(params["fpn_td"]) + 2 * len(params["ssh"]))
+        return base_detector(params, x)
+
+    iresnet.iresnet_forward = pipeline.iresnet_forward = counted_iresnet
+    retinaface.retinaface_forward = pipeline.retinaface_forward = counted_detector
 
 
 def reset_launches() -> None:
     """Clear every wrapper's launch count and the launches owed."""
     reset_all_launches()
     with _owed_lock:
-        _owed["launches"] = 0
+        _owed.update(launches=0, iresnet=0, detector=0)
 
 
-def chain_launches(dev) -> int:
-    """bn_act's launches since the last reset_launches. On the card, exactly
-    those the iresnet forwards owe: a forward that took the block path
-    leaves them short."""
-    n, owed = bn_act_cuda.KERNEL.launches, _owed["launches"]
-    if dev.type == "cuda" and n != owed:
-        raise AssertionError(f"bn_act launched {n} times; the iresnet forwards on the card "
-                             f"owe {owed}")
-    return n
+def chain_launches(dev) -> dict:
+    """bn_act's launches since the last reset_launches, and the iresnet and
+    detector inference forwards counted since. On the card, exactly the
+    launches those forwards owe: a forward that took the eager path leaves
+    them short."""
+    n = bn_act_cuda.KERNEL.launches
+    with _owed_lock:
+        owed = dict(_owed)
+    if dev.type == "cuda" and n != owed["launches"]:
+        raise AssertionError(f"bn_act launched {n} times; the {owed['iresnet']} iresnet and "
+                             f"{owed['detector']} detector forwards on the card owe "
+                             f"{owed['launches']}")
+    return {**owed, "launches": n}
+
+
+def chain_text(c: dict, embedder: str) -> str:
+    """A phase's bn_act launches (``chain_launches``) beside the forwards
+    that owe them."""
+    return f"{c['launches']} ({c['detector']} detector forwards of 38, {c['iresnet']} {embedder})"
 
 
 def say(phase: str, text: str) -> None:
@@ -718,20 +749,28 @@ def nms_call_share(dev, k: int) -> dict:
     return out
 
 
-# the iresnet chains' pass (csrc/bn_act.cu) at r50.stream's embed rung, in
-# each of its seven modes at a shape where iresnet50's forward runs it:
-# name -> (C, H = W of the input, keywords of ``bn_act_call``)
+# the chains' pass (csrc/bn_act.cu) at r50.stream's embed rung, in each of
+# its seven modes at a shape where iresnet50's forward runs it, and at the
+# cells' frames a batch where the detector runs it at det 640:
+# name -> (B, C, H = W of the input, keywords of ``bn_act_call``)
 BN_ACT_BATCH = 1664
+DET_BATCH = 128
 BN_ACT_CASES = {
-    "stem": (64, 112, dict(nxt=True)),                     # bn_prelu + block 0's bn1
-    "stage1_pad": (64, 112, dict(pad=(1, 1))),             # block 0's pass A, into conv2's pad
-    "stage1_A": (64, 56, {}),                              # bn2, PReLU
-    "stage1_down": (64, 56, dict(sc=True, down=True)),     # bn3 + down_bn(shortcut), next bn1
-    "stage1_B": (64, 56, dict(sc=True)),                   # bn3 + block input, next bn1
-    "stage3_A": (256, 14, {}),
-    "stage3_B": (256, 14, dict(sc=True)),
-    "stage4_last": (512, 7, dict(sc=True, keep=False)),    # head_bn of the sum alone
-    "stage4_down_last": (512, 7, dict(sc=True, down=True, keep=False)),
+    "stem": (BN_ACT_BATCH, 64, 112, dict(nxt=True)),                 # bn_prelu + block 0's bn1
+    "stage1_pad": (BN_ACT_BATCH, 64, 112, dict(pad=(1, 1))),         # block 0's pass A, padded
+    "stage1_A": (BN_ACT_BATCH, 64, 56, {}),                          # bn2, PReLU
+    "stage1_down": (BN_ACT_BATCH, 64, 56, dict(sc=True, down=True)),  # bn3 + down_bn(sc), bn1
+    "stage1_B": (BN_ACT_BATCH, 64, 56, dict(sc=True)),               # bn3 + block input, bn1
+    "stage3_A": (BN_ACT_BATCH, 256, 14, {}),
+    "stage3_B": (BN_ACT_BATCH, 256, 14, dict(sc=True)),
+    "stage4_last": (BN_ACT_BATCH, 512, 7, dict(sc=True, keep=False)),  # head_bn of the sum
+    "stage4_down_last": (BN_ACT_BATCH, 512, 7, dict(sc=True, down=True, keep=False)),
+    "det_stem": (DET_BATCH, 8, 320, dict(leaky=True)),               # BN, leaky ReLU
+    "det_stage1_pad": (DET_BATCH, 16, 320, dict(leaky=True, pad=(1, 1))),  # a stride-2 dw's input
+    "det_stage2": (DET_BATCH, 128, 40, dict(leaky=True)),
+    "det_stage3": (DET_BATCH, 256, 20, dict(leaky=True)),
+    "det_ssh": (DET_BATCH, 16, 80, dict(leaky=True)),
+    "det_prelu_pad": (DET_BATCH, 16, 320, dict(pad=(1, 1))),         # a real det export's PReLU
 }
 
 
@@ -745,14 +784,19 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
 
 
 def bn_act_call(route: str, x: torch.Tensor, sc: torch.Tensor | None, layers: dict,
-                nxt: bool = False, pad=None, down: bool = False, keep: bool = True) -> tuple:
+                nxt: bool = False, pad=None, down: bool = False, keep: bool = True,
+                leaky: bool = False) -> tuple:
     """One case of the pass as (y or r, u), None where not written: route
     "kernel" launches it, "eager" runs the eager bf16 chain the forward ran
     before (the plain twins), "f32" the chain computed in f32 from the same
-    folds and rounded once to x's dtype (the plain version it is held to)."""
+    folds and rounded once to x's dtype (the plain version it is held to).
+    ``leaky``: the detector's leaky ReLU at 0.1 in place of the PReLU."""
     bn_next = layers["bn_next"] if nxt or sc is not None else None
     down_bn = layers["down_bn"] if down else None
     if route != "f32":
+        if leaky:
+            f = bn_act_cuda.bn_leaky if route == "kernel" else bn_act_cuda.bn_leaky_plain
+            return f(x, layers["bn"], 0.1, pad), None
         if sc is None:
             f = bn_act_cuda.bn_prelu if route == "kernel" else bn_act_cuda.bn_prelu_plain
             y = f(x, layers["bn"], layers["act"], bn_next=bn_next, pad=pad)
@@ -766,7 +810,7 @@ def bn_act_call(route: str, x: torch.Tensor, sc: torch.Tensor | None, layers: di
     s, t = fold(layers["bn"])
     v = x.float() * s + t
     if sc is None:
-        a = nn._cast(layers["act"], "alpha", x.dtype).float()[:, None, None]
+        a = 0.1 if leaky else nn._cast(layers["act"], "alpha", x.dtype).float()[:, None, None]
         v = torch.where(v >= 0, v, a * v)
         if pad is not None:
             v = F.pad(v, (0, pad[1], 0, pad[0]))
@@ -784,9 +828,9 @@ def bn_act_call(route: str, x: torch.Tensor, sc: torch.Tensor | None, layers: di
 
 
 def check_bn_act(dev) -> dict:
-    """The iresnet chains' pass at r50.stream's rung, bf16, in every case of
-    ``BN_ACT_CASES``: each output held within 1 bf16 ulp of the f32 chain
-    rounded once (the padded output's zero border included), timed beside
+    """The chains' pass at r50.stream's rung and the detector's batch, bf16,
+    in every case of ``BN_ACT_CASES``: each output held within 1 bf16 ulp of
+    the f32 chain rounded once (the padded output's zero border included), timed beside
     that chain (the plain version), beside its bound (each input read once,
     each output written once, over 3.35 TB/s) and beside the eager bf16
     chain the forward ran before (``library_ms``, a yardstick the port no
@@ -799,12 +843,12 @@ def check_bn_act(dev) -> dict:
         return torch.from_numpy(v.astype(np.float32)).to(dev)
 
     out = {}
-    for name, (c, h, kw) in BN_ACT_CASES.items():
+    for name, (b, c, h, kw) in BN_ACT_CASES.items():
         layers = {k: {"gamma": param(0.5, 1.5, c), "beta": param(0, 0.3, c, True),
                       "mean": param(0, 0.3, c, True), "var": param(0.5, 2.0, c)}
                   for k in ("bn", "bn_next", "down_bn")}
         layers["act"] = {"alpha": param(0.05, 0.45, c)}
-        x, sc = (torch.randn((BN_ACT_BATCH, h, h, c), generator=gen, device=dev)
+        x, sc = (torch.randn((b, h, h, c), generator=gen, device=dev)
                  .to(torch.bfloat16).permute(0, 3, 1, 2) for _ in range(2))
         kw = dict(kw)
         sc = sc if kw.pop("sc", False) else None
@@ -828,7 +872,7 @@ def check_bn_act(dev) -> dict:
         del got, want, eager, pairs
         bound_ms, bound_by = bound(2 * (n_in + n_out) + 7 * c * 2, 0)
         out[name] = dict(
-            shape=[BN_ACT_BATCH, c, h, h], max_ulps=ulps, max_abs_err=err,
+            shape=[b, c, h, h], max_ulps=ulps, max_abs_err=err,
             ms=device_ms(lambda: run("kernel")), bound_ms=bound_ms, bound_by=bound_by,
             plain_ms=device_ms(lambda: run("f32"), reps=10, host_bound=True),
             library_ms=device_ms(lambda: run("eager"), reps=20, host_bound=True),
@@ -3737,7 +3781,7 @@ def main() -> int:
     scan = run_scan(dev, scenes, PROFILE, TICKS, WARM)
     say("engine", f"default profile, {FRAMES} x 640 I420 delta stream, {TICKS} ticks "
         f"after the keyframe: {scan['batches']} batches, launches {scan['launches']}, bn_act "
-        f"{scan['chains']} (MobileFaceNet: none)")
+        f"{chain_text(scan['chains'], 'iresnet forwards: the embedder is MobileFaceNet')}")
     say("engine", f"steady state over {TICKS + 1 - WARM} ticks (submit then fetch): "
         f"{scan['frames_per_s']:.1f} frames/s, {scan['faces_per_s']:.1f} faces/s, "
         f"{scan['faces_per_batch']:.2f} faces/batch, {scan['ms_per_batch']:.2f} ms/batch")
@@ -3771,7 +3815,7 @@ def main() -> int:
     say("accuracy", f"iresnet18 + flip-TTA, distance scale {acc['engine'].distance_scale}, "
         f"{FRAMES} x 640 I420 delta stream, {TICKS} ticks after the keyframe: "
         f"{acc['batches']} batches with the compaction runs, launches {acc['launches']}, bn_act "
-        f"{acc['chains']} ({acc['chains'] // 17} iresnet18 forwards of 17)")
+        f"{chain_text(acc['chains'], 'iresnet18 forwards of 17')}")
     say("accuracy", f"steady state over {TICKS + 1 - WARM} ticks (submit then fetch): "
         f"{acc['frames_per_s']:.1f} frames/s, {acc['faces_per_s']:.1f} faces/s, "
         f"{acc['faces_per_batch']:.2f} faces/batch, {acc['ms_per_batch']:.2f} ms/batch")
@@ -3977,7 +4021,7 @@ def main() -> int:
         f"faces/batch, {oc['ms_per_batch']:.2f} ms/batch; stage ms (device, median) "
         + ", ".join(f"{k} {v:.3f}" for k, v in oc["stage_ms"].items())
         + f"; launches {imp['launches']} over {imp['batches']} batches (kernels 1 and 2 once a "
-        f"batch), bn_act {imp['chains']} ({imp['chains'] // 49} iresnet50 forwards of 49); "
+        f"batch), bn_act {chain_text(imp['chains'], 'iresnet50 forwards of 49')}; "
         f"phase 13 took {time.perf_counter() - t_import:.1f} s on {smi}")
 
     t_mesh = time.perf_counter()
@@ -4143,7 +4187,8 @@ def main() -> int:
     for (name, dtype), r in dg["runs"].items():
         on = "cpu, f32" if dtype == "cpu" else f"cuda, {'f32, TF32 off' if dtype == 'float32' else 'bf16'}"
         say("diagnostics", f"{name} {' '.join(dg['size'] + DIAG_TOOLS[name])} ({on}): "
-            f"{r['seconds']:.1f} s, launches {r['launches']}, bn_act {r['chains']}; "
+            f"{r['seconds']:.1f} s, launches {r['launches']}, bn_act "
+            f"{chain_text(r['chains'], 'iresnet forwards')}; "
             f"{diag_summary(name, r['report'])}"
             + ("" if dtype == "cpu" else f"; on {smi}"))
         say("diagnostics", f"{name} ({on}) report: {json.dumps(r['report'])}")
@@ -4185,11 +4230,13 @@ def main() -> int:
     # kernels 1 and 2 in the accuracy diagnostics' card runs (phase 18)
     for row in rows:
         row["diagnostics_launches"] = dg["launches"][row["name"]]
-    # the iresnet chains' pass: no TPU kernel; its launches in the phases that
-    # run an iresnet, and its numbers at r50.stream's shapes (phase 3)
+    # the chains' pass: no TPU kernel; its launches in the phases that run an
+    # iresnet or the detector on the card, and its numbers at r50.stream's
+    # and the detector's shapes (phase 3)
     rows.append(kernel_row(bn_act_cuda.KERNEL, launches={
-        "engine": scan["chains"], "accuracy": acc["chains"], "imported": imp["chains"],
-        "diagnostics": sum(r["chains"] for r in dg["runs"].values())}, **chains))
+        "engine": scan["chains"]["launches"], "accuracy": acc["chains"]["launches"],
+        "imported": imp["chains"]["launches"],
+        "diagnostics": sum(r["chains"]["launches"] for r in dg["runs"].values())}, **chains))
     # the ViT's add-LN pass: no TPU kernel, and no phase runs a ViT forward;
     # its numbers at vitl.stream's shapes (phase 3)
     rows.append(kernel_row(add_ln_cuda.KERNEL, **passes))

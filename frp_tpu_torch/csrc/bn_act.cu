@@ -1,27 +1,37 @@
-// One pass over a channels-last activation for each BN-PReLU and BN-add-BN
-// chain of the iresnet embedder's inference forward.
+// One pass over a channels-last activation for each BN-activation and
+// BN-add-BN chain of an inference forward: iresnet's BN-PReLU and BN-add-BN
+// chains (the embed stage), and RetinaFace's BN and leaky ReLU or PReLU
+// after each activated conv (the detect stage).
 //
 // Replaces no TPU kernel. The JAX package leaves these element-wise chains
 // to XLA, which fuses each into the ops around it. The port's forward is
 // eager, so each op of a chain was a kernel of its own: a BN two passes over
-// the activation (x * s, + t), a PReLU three (compare, multiply, where), the
-// residual add one, a stride-2 block's padding a copy. In bf16 that is about
-// 130 MB of traffic a face in iresnet50; one pass a chain moves about 31 MB.
+// the activation (x * s, + t), a PReLU or leaky ReLU three (compare,
+// multiply, where), the residual add one, a stride-2 conv's padding a copy.
+// In bf16 that is about 130 MB of traffic a face in iresnet50; one pass a
+// chain moves about 31 MB.
 //
 // Modes (bits of `mode`):
-//   kPrelu     y = prelu_a(x * s + t): a conv's BN and PReLU (the stem, and
-//              every block's bn2 after conv1).
+//   kPrelu     y = prelu_a(x * s + t): a conv's BN and PReLU (iresnet's stem
+//              and every block's bn2 after conv1; RetinaFace's activated
+//              convs where the weights carry learned slopes).
+//   kLeaky     y = leaky(x * s + t): y >= 0 ? y : slope * y, slope one f32
+//              scalar (0.1, as nn.leaky_relu computes it): RetinaFace's
+//              activated convs with the in-repo weights.
 //   kAddId     r = x * s + t + sc: a block's bn3 after conv2, plus its input.
 //   kAddDown   r = x * s + t + (sc * sd + td): the shortcut is the down
 //              conv's output through down_bn.
-//   kWriteR    store y (or r): with kPrelu always, with an add but after
-//              the last block.
+//   kWriteR    store y (or r): with kPrelu and kLeaky always, with an add
+//              but after the last block.
 //   kNext      store u = y * s1 + t1 (or r * s1 + t1): the next block's bn1,
 //              or head_bn after the last block; always with an add.
-//   kPad       (with kPrelu) store y into [B, H + ph, W + pw, C], the rows
-//              below and the columns right of it zero: the input of a
-//              stride-2 conv under XLA SAME padding, which would otherwise be
-//              copied by F.pad.
+//   kPad       (with kPrelu or kLeaky) store y into [B, H + ph, W + pw, C],
+//              the rows below and the columns right of it zero: the input of
+//              a stride-2 conv under XLA SAME padding, which would otherwise
+//              be copied by F.pad.
+// Instances built (`dispatch`): iresnet's kPrelu | kWriteR [| kPad | kNext],
+// kAdd* | kNext [| kWriteR]; RetinaFace's kLeaky | kWriteR [| kPad] and
+// kPrelu | kWriteR [| kPad].
 // Every tensor is [B, H, W, C] in memory (channels-last), of one element
 // type (f32 or bf16); s, t, a, sd, td, s1 and t1 are [C] of that type:
 // the folded BN scale and shift and the PReLU slope as the plain version
@@ -52,7 +62,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // vectors of a thread in flight
 
-enum : int { kPrelu = 1, kAddId = 2, kAddDown = 4, kWriteR = 8, kNext = 16, kPad = 32 };
+enum : int {
+  kPrelu = 1,
+  kAddId = 2,
+  kAddDown = 4,
+  kWriteR = 8,
+  kNext = 16,
+  kPad = 32,
+  kLeaky = 64
+};
 
 // element types by the wrapper's code: 0 float32, 1 bfloat16
 template <int D>
@@ -106,6 +124,7 @@ struct Args {
   const uint4* td;
   const uint4* s1;
   const uint4* t1;
+  float slope;   // the leaky slope (kLeaky)
   long long nv;  // 16-byte vectors of an output
   int cv;        // vectors a pixel, a power of two dividing kThreads
   int cv_shift;  // log2(cv)
@@ -175,6 +194,10 @@ __global__ void __launch_bounds__(kThreads) bn_act_kernel(const Args a) {
 #pragma unroll
         for (int j = 0; j < L; ++j) v[j] = v[j] >= 0.0f ? v[j] : al[j] * v[j];
       }
+      if constexpr ((M & kLeaky) != 0) {
+#pragma unroll
+        for (int j = 0; j < L; ++j) v[j] = v[j] >= 0.0f ? v[j] : a.slope * v[j];
+      }
       if constexpr (kAdd) {
         float d[L];
         E::unpack(dq[k], d);
@@ -226,6 +249,8 @@ int dispatch(int mode, const Args& a, cudaStream_t stream) {
     FRP_BN_ACT_MODE(kAddId | kWriteR | kNext)
     FRP_BN_ACT_MODE(kAddDown | kNext)
     FRP_BN_ACT_MODE(kAddDown | kWriteR | kNext)
+    FRP_BN_ACT_MODE(kLeaky | kWriteR)
+    FRP_BN_ACT_MODE(kLeaky | kWriteR | kPad)
 #undef FRP_BN_ACT_MODE
     default:
       return (int)cudaErrorInvalidValue;
@@ -236,19 +261,20 @@ int dispatch(int mode, const Args& a, cudaStream_t stream) {
 
 // dtype: 0 float32, 1 bfloat16. nv: 16-byte vectors of an output;
 // cv: vectors a pixel; h, w: the input's spatial size and ho, wo the output's
-// (equal unless kPad). Pointers a mode does not read or write may be null.
+// (equal unless kPad); slope: the leaky slope (read by kLeaky alone).
+// Pointers a mode does not read or write may be null.
 extern "C" int frp_bn_act(int dtype, int mode, const void* x, const void* sc, void* r, void* u,
                           const void* s, const void* t, const void* a, const void* sd,
                           const void* td, const void* s1, const void* t1, long long nv, int cv,
-                          int h, int w, int ho, int wo, void* stream) {
+                          int h, int w, int ho, int wo, float slope, void* stream) {
   if (nv <= 0) return 0;
   if (cv <= 0 || (cv & (cv - 1)) != 0 || kThreads % cv != 0) return (int)cudaErrorInvalidValue;
   int shift = 0;
   while ((1 << shift) < cv) ++shift;
   const Args args{(const uint4*)x, (const uint4*)sc, (uint4*)r, (uint4*)u,
                   (const uint4*)s, (const uint4*)t, (const uint4*)a, (const uint4*)sd,
-                  (const uint4*)td, (const uint4*)s1, (const uint4*)t1, nv, cv, shift,
-                  h, w, ho, wo};
+                  (const uint4*)td, (const uint4*)s1, (const uint4*)t1, slope, nv, cv,
+                  shift, h, w, ho, wo};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case 0:

@@ -69,27 +69,6 @@ def _block(p, x, stride, stats=None, path=(), group=None):
     return x + y
 
 
-def _leaves(tree):
-    """The tensors of a parameter tree, leaving out the layers' caches
-    (``_cast``, ``_folded``)."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            if not k.startswith("_"):
-                yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-
-
-def _records_grad(params: dict, x: torch.Tensor) -> bool:
-    """Whether autograd would record this forward: grad mode on, and the
-    input or a parameter requires grad."""
-    return torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for t in _leaves(params)))
-
-
 def _chains(params: dict, x: torch.Tensor) -> torch.Tensor:
     """The inference trunk through one ``bn_act_cuda`` pass a chain: x NHWC
     -> head_bn of the last block's output, [B, C, 7, 7] (channels-last)."""
@@ -149,7 +128,7 @@ def iresnet_forward(params: dict, x: torch.Tensor, normalize: bool = True,
     takes the statistics over its global batch (``nn.batch_norm``)."""
     stats: dict | None = {} if train else None
     g = bn_group
-    if stats is None and not _records_grad(params, x):
+    if stats is None and not nn.records_grad(params, x):
         y = _chains(params, x)
     else:
         y = nn.conv(params["stem"], x.permute(0, 3, 1, 2))

@@ -117,6 +117,29 @@ def _cast(p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
     return got
 
 
+def _leaves(tree):
+    """The tensors of a parameter tree, leaving out the layers' caches
+    (``_cast``, ``_folded``)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            if not k.startswith("_"):
+                yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def records_grad(params: dict, x: torch.Tensor) -> bool:
+    """Whether autograd would record a forward of x through params: grad mode
+    on, and the input or a parameter requires grad. Where it would not, the
+    forwards take their one-pass chains (``ops/bn_act_cuda.py``), which have
+    no backward."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in _leaves(params)))
+
+
 # "same" (XLA asymmetric) | "torch" (symmetric k//2): see set_padding_mode
 _PADDING_MODE = os.getenv("CONV_PADDING", "same")
 

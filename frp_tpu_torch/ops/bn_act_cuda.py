@@ -1,18 +1,27 @@
-"""The iresnet embedder's BN-PReLU and BN-add-BN chains in one pass each: the
-CUDA kernel ``csrc/bn_act.cu`` and its plain PyTorch twin.
+"""The BN-activation and BN-add-BN chains of the inference forwards in one
+pass each: the CUDA kernel ``csrc/bn_act.cu`` and its plain PyTorch twin.
+iresnet's embedder (``models/iresnet.py``) runs its BN-PReLU and BN-add-BN
+chains through it, RetinaFace's detector (``models/retinaface.py``) the BN
+and leaky ReLU or PReLU after each activated conv.
 
 Replaces no TPU kernel: the JAX package leaves these element-wise chains to
 XLA, which fuses them. The port's eager forward ran each op of a chain as a
 kernel of its own, and at the embed rung of 1664 faces those kernels were
-most of the iresnet50 forward's device time: a BN is two passes over the
-activation, a PReLU three, the residual add one, a stride-2 block's padding
-a copy. One pass a chain reads each activation once and writes each output
+most of the iresnet50 forward's device time, and about half of the
+detector's at 128 frames: a BN is two passes over the activation, a PReLU
+or leaky ReLU three, the residual add one, a stride-2 conv's padding a
+copy. One pass a chain reads each activation once and writes each output
 once.
 
 - ``bn_prelu(x, bn, act)``: y = prelu(bn(x)), with ``bn_next`` also
   u = bn_next(y), with ``pad=(rows, columns)`` y written into a buffer with
   that many zero rows below and columns right (the input of a stride-2 conv
   under XLA SAME padding, ``nn.explicit_pad``).
+- ``bn_leaky(x, bn, slope)``: y = leaky_relu(bn(x), slope), with ``pad`` as
+  ``bn_prelu``'s. The slope is one Python float, which the kernel takes as
+  an f32 scalar, as ``nn.leaky_relu``'s multiply by a Python scalar
+  computes it; a tensor of slopes is refused (a bf16 0.1 is 0.10009765625,
+  another model).
 - ``bn_add(x, bn, shortcut, bn_next)``: r = shortcut + bn(x), the shortcut
   through ``down_bn`` first where given, and u = bn_next(r); with
   ``keep=False`` u alone (after the last block, whose r nothing reads).
@@ -22,18 +31,20 @@ give them; the scales, shifts and slopes are those ``nn.batch_norm`` and
 ``nn.prelu`` fold and cast, cached per dtype in the layers' dicts.
 
 Dispatch: CPU tensors take the plain twin, today's chain of ``nn.batch_norm``,
-``nn.prelu``, ``F.pad`` and ``+``, so the CPU forward is bit for bit what it
-was. CUDA tensors launch the kernel or raise: on a dtype other than f32 or
-bf16, a tensor that is not channels-last contiguous or not 16-byte aligned,
-a shortcut of another shape, a parameter of another length than C, or a C
-whose 16-byte vectors a pixel do not divide 256. The kernel computes in f32
-and rounds once a store, so in bf16 it agrees with the twin computed in f32
-and rounded once, not with the twin's bf16 roundings between ops. The library
-is loaded as a ``ctypes.PyDLL`` (``keep_gil`` in ``KERNEL``): a launch keeps
-the interpreter lock, which a release would hand to the engine's producer
+``nn.prelu`` or ``nn.leaky_relu``, ``F.pad`` and ``+``, so the CPU forward is
+bit for bit what it was. CUDA tensors launch the kernel or raise: on a dtype
+other than f32 or bf16, a tensor that is not channels-last contiguous or not
+16-byte aligned, a shortcut of another shape, a parameter of another length
+than C, or a C whose 16-byte vectors a pixel do not divide 256. The kernel
+computes in f32 and rounds once a store, so in bf16 it agrees with the twin
+computed in f32 and rounded once, not with the twin's bf16 roundings between
+ops; in f32 it is the twin bit for bit. The library is loaded as a
+``ctypes.PyDLL`` (``keep_gil`` in ``KERNEL``): a launch keeps the
+interpreter lock, which a release would hand to the engine's producer
 thread for about a millisecond, some 49 times an iresnet50 forward.
 ``KERNEL.launches`` counts kernel launches: one for the stem and two a
-block, 1 + 2 x blocks a forward.
+block of an iresnet, 1 + 2 x blocks a forward; one an activated conv of the
+detector, 38 a forward.
 """
 
 from __future__ import annotations
@@ -47,13 +58,13 @@ from frp_tpu_torch.models import nn
 from frp_tpu_torch.ops import cuda_build
 
 # the kernel's mode bits (csrc/bn_act.cu)
-PRELU, ADD_ID, ADD_DOWN, WRITE_R, NEXT, PAD = 1, 2, 4, 8, 16, 32
+PRELU, ADD_ID, ADD_DOWN, WRITE_R, NEXT, PAD, LEAKY = 1, 2, 4, 8, 16, 32, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # a block's threads (csrc/bn_act.cu kThreads)
 
 KERNEL = cuda_build.Kernel(
     "bn_act", [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p], keep_gil=True)
+    + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p], keep_gil=True)
 
 
 def bn_prelu_plain(x: torch.Tensor, bn: dict, act: dict, bn_next: dict | None = None,
@@ -64,6 +75,14 @@ def bn_prelu_plain(x: torch.Tensor, bn: dict, act: dict, bn_next: dict | None = 
     if pad is not None:
         y = F.pad(y, (0, pad[1], 0, pad[0]))
     return y if bn_next is None else (y, nn.batch_norm(bn_next, y))
+
+
+def bn_leaky_plain(x: torch.Tensor, bn: dict, slope: float = 0.1,
+                   pad: tuple[int, int] | None = None) -> torch.Tensor:
+    """leaky_relu(bn(x), slope), padded with ``pad`` zero rows and columns:
+    the eager chain."""
+    y = nn.leaky_relu(nn.batch_norm(bn, x), slope)
+    return y if pad is None else F.pad(y, (0, pad[1], 0, pad[0]))
 
 
 def bn_add_plain(x: torch.Tensor, bn: dict, shortcut: torch.Tensor, bn_next: dict,
@@ -122,7 +141,7 @@ def operands(x: torch.Tensor, sc: torch.Tensor | None, params: dict,
 
 
 def _launch(mode: int, x: torch.Tensor, sc: torch.Tensor | None, params: dict,
-            pad: tuple[int, int] | None, outputs: tuple[bool, bool]):
+            pad: tuple[int, int] | None, outputs: tuple[bool, bool], slope: float = 0.0):
     """Check the operands, allocate the outputs ((r, u), each None where not
     asked), launch once."""
     if not x.is_cuda:
@@ -141,7 +160,7 @@ def _launch(mode: int, x: torch.Tensor, sc: torch.Tensor | None, params: dict,
             _DTYPES[x.dtype], mode, x.data_ptr(), None if sc is None else sc.data_ptr(),
             None if r is None else r.data_ptr(), None if u is None else u.data_ptr(),
             ptr["s"], ptr["t"], ptr.get("a"), ptr.get("sd"), ptr.get("td"), ptr.get("s1"),
-            ptr.get("t1"), b * ho * wo * cv, cv, h, w, ho, wo,
+            ptr.get("t1"), b * ho * wo * cv, cv, h, w, ho, wo, slope,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     return r, u
@@ -166,6 +185,22 @@ def bn_prelu(x: torch.Tensor, bn: dict, act: dict, bn_next: dict | None = None,
         mode |= PAD
     y, u = _launch(mode, x, None, params, pad, (True, bn_next is not None))
     return y if bn_next is None else (y, u)
+
+
+def bn_leaky(x: torch.Tensor, bn: dict, slope: float = 0.1,
+             pad: tuple[int, int] | None = None) -> torch.Tensor:
+    """leaky_relu(bn(x), slope) (with ``pad``, padded): the plain twin for
+    CPU tensors, one kernel launch for CUDA tensors. ``slope`` is one Python
+    float on either route."""
+    if not isinstance(slope, float):
+        raise ValueError(f"bn_act: the leaky slope is one Python float, taken in f32 as "
+                         f"nn.leaky_relu takes it, not {type(slope).__name__}")
+    if x.device.type == "cpu":
+        return bn_leaky_plain(x, bn, slope, pad)
+    s, t = nn.bn_fold(bn, x)
+    y, _ = _launch(LEAKY | WRITE_R | (0 if pad is None else PAD), x, None, {"s": s, "t": t},
+                   pad, (True, False), float(slope))
+    return y
 
 
 def bn_add(x: torch.Tensor, bn: dict, shortcut: torch.Tensor, bn_next: dict,

@@ -479,8 +479,9 @@ def test_smoke_phase_holds_the_attempts_line(monkeypatch):
 def test_launch_counts_read_and_clear_the_three_wrappers():
     """``frp_tpu_torch.ops.launches`` (the bench's ``kernel_launches`` and
     chip_smoke.py's counts) reads each kernel declaration's launch count
-    under the kernel's name (the three ported kernels', the iresnet chains'
-    pass, ``bn_act``, and the ViT's add-LN pass, ``add_ln``), and
+    under the kernel's name (the three ported kernels', the chains' pass of
+    iresnet and the detector, ``bn_act``, and the ViT's add-LN pass,
+    ``add_ln``), and
     ``reset_launches`` sets them to 0."""
     from frp_tpu_torch.ops import (add_ln_cuda, align_cuda, bn_act_cuda, detection_cuda,
                                    launches, nms_cuda, reset_launches)

@@ -1,11 +1,12 @@
-"""PyTorch port, the iresnet embedder's one-pass BN-PReLU and BN-add-BN
-chains (``frp_tpu_torch/ops/bn_act_cuda.py``) on the CPU: the plain twins
-are the eager chain of ``nn.batch_norm``, ``nn.prelu``, ``F.pad`` and ``+``
-bit for bit, in every mode, at f32 and bf16 and at the four iresnet widths;
-the launch checks refuse what the kernel cannot take; the inference forward
-through the twins equals the forward block by block bit for bit, and only
-a forward that autograd records nothing of reaches them. The kernel itself
-is held on the card (``tests/test_torch_cuda.py``).
+"""PyTorch port, the one-pass BN-activation and BN-add-BN chains
+(``frp_tpu_torch/ops/bn_act_cuda.py``) of the iresnet embedder and the
+RetinaFace detector on the CPU: the plain twins are the eager chain of
+``nn.batch_norm``, ``nn.prelu`` or ``nn.leaky_relu``, ``F.pad`` and ``+``
+bit for bit, in every mode, at f32 and bf16 and at the detector's and the
+four iresnet widths; the launch checks refuse what the kernel cannot take;
+the inference forwards through the twins equal the eager forwards bit for
+bit, and only a forward that autograd records nothing of reaches them. The
+kernel itself is held on the card (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -13,12 +14,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from frp_tpu_torch.models import iresnet, nn
+from frp_tpu_torch.models import iresnet, nn, retinaface
 from frp_tpu_torch.models.params import convert_params
 from frp_tpu_torch.ops import bn_act_cuda
 from frp_tpu_torch.testing.onnx_export import realistic_stats
 
-WIDTHS = (64, 128, 256, 512)
+# the detector's widths below 64, then iresnet's (the detector's go to 256)
+WIDTHS = (8, 16, 32, 64, 128, 256, 512)
 
 
 @pytest.fixture(autouse=True)
@@ -29,7 +31,8 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
-MODES = ("stem", "prelu", "prelu_pad", "add", "add_last", "down", "down_last")
+MODES = ("stem", "prelu", "prelu_pad", "leaky", "leaky_pad", "add", "add_last", "down",
+         "down_last")
 
 
 def _bn(rng, c):
@@ -54,7 +57,10 @@ def _case(mode, c, dtype, seed=0):
 
 
 def _chain(mode, x, sc, p):
-    """Each mode written out as the eager chain the iresnet forward ran."""
+    """Each mode written out as the eager chain the forwards ran."""
+    if mode.startswith("leaky"):
+        y = nn.leaky_relu(nn.batch_norm(p["bn"], x))
+        return (F.pad(y, (0, 1, 0, 1)) if mode == "leaky_pad" else y), None
     if mode.startswith("stem") or mode.startswith("prelu"):
         y = nn.prelu(p["act"], nn.batch_norm(p["bn"], x))
         if mode == "prelu_pad":
@@ -67,6 +73,9 @@ def _chain(mode, x, sc, p):
 
 
 def _twin(mode, x, sc, p):
+    if mode.startswith("leaky"):
+        return bn_act_cuda.bn_leaky_plain(x, p["bn"], 0.1,
+                                          pad=(1, 1) if mode == "leaky_pad" else None), None
     if mode in ("stem", "prelu", "prelu_pad"):
         got = bn_act_cuda.bn_prelu_plain(x, p["bn"], p["act"],
                                          bn_next=p["bn_next"] if mode == "stem" else None,
@@ -88,7 +97,7 @@ def test_plain_twin_is_the_eager_chain(mode, c, dtype):
         assert (g is None) == (w is None)
         if w is not None:
             assert g.dtype == dtype and torch.equal(g, w)
-    if mode == "prelu_pad":
+    if mode.endswith("_pad"):
         assert got[0].shape == (2, c, 7, 7) and not got[0][:, :, 6].any() and not got[0][..., 6].any()
 
 
@@ -100,6 +109,19 @@ def test_the_wrappers_take_cpu_tensors_to_the_twins():
     y, u = bn_act_cuda.bn_prelu(x, p["bn"], p["act"], bn_next=p["bn_next"])
     want = _chain("stem", x, sc, p)
     assert torch.equal(y, want[0]) and torch.equal(u, want[1])
+    y = bn_act_cuda.bn_leaky(x, p["bn"], pad=(1, 1))
+    assert torch.equal(y, _chain("leaky_pad", x, sc, p)[0])
+
+
+def test_the_leaky_slope_is_one_python_float():
+    """The leaky slope is a Python float on either route, as nn.leaky_relu
+    multiplies by it (in f32 on the card); a tensor of slopes, such as a bf16
+    vector of 0.1 (0.10009765625, another model), is refused."""
+    x, _, p = _case("leaky", 64, torch.bfloat16)
+    assert torch.equal(bn_act_cuda.bn_leaky(x, p["bn"], 0.2), nn.leaky_relu(nn.batch_norm(p["bn"], x), 0.2))
+    for slope in (torch.full((64,), 0.1, dtype=torch.bfloat16), torch.tensor(0.1), np.float32(0.1)):
+        with pytest.raises(ValueError, match="slope"):
+            bn_act_cuda.bn_leaky(x, p["bn"], slope)
 
 
 def _params(x, p):
@@ -167,7 +189,7 @@ def test_explicit_pad_is_the_copy_conv_makes():
 @pytest.fixture
 def calls(monkeypatch):
     """Counts the forward's calls of the two wrappers."""
-    n = {"bn_prelu": 0, "bn_add": 0}
+    n = {"bn_prelu": 0, "bn_leaky": 0, "bn_add": 0}
     for name in n:
         real = getattr(bn_act_cuda, name)
 
@@ -194,21 +216,66 @@ def test_inference_forward_through_the_twins_is_the_block_forward(calls, dtype, 
     try:
         with torch.no_grad():
             got = iresnet.iresnet_forward(params, x)
-        assert calls == {"bn_prelu": 1 + 8, "bn_add": 8}
+        assert calls == {"bn_prelu": 1 + 8, "bn_leaky": 0, "bn_add": 8}
         want = iresnet.iresnet_forward(params, x.clone().requires_grad_(True))
-        assert calls == {"bn_prelu": 1 + 8, "bn_add": 8}
+        assert calls == {"bn_prelu": 1 + 8, "bn_leaky": 0, "bn_add": 8}
     finally:
         nn.set_padding_mode("same")
     assert want.requires_grad and torch.equal(got, want.detach())
 
 
+@pytest.mark.parametrize("padding", ["same", "torch"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["leaky", "prelu"])
+def test_detector_forward_through_the_twins_is_the_eager_forward(calls, act, dtype, padding):
+    """RetinaFace with fitted-looking BN stats: the forward that autograd
+    records nothing of goes through the wrappers, one call an activated
+    conv (38: the stem, 13 depthwise-separable pairs, 3 laterals, 2
+    top-down convs, 6 SSH convs), leaky ReLU or PReLU as the layers hold
+    slopes, and equals the eager forward (taken when the input requires
+    grad) bit for bit, in both padding modes. Under "same" the two pointwise
+    convs before a stride-2 depthwise conv inside stage 1 write its padded
+    input; the stage outputs, which the FPN reads too, are not padded."""
+    params = convert_params(realistic_stats(retinaface.init_retinaface(0, act=act),
+                                            np.random.default_rng(1), gamma=(0.5, 1.5)))
+    x = torch.from_numpy(np.random.default_rng(2).normal(0, 0.5, (2, 96, 96, 3))
+                         .astype(np.float32)).to(dtype)
+    pads = []
+    real = nn.explicit_pad
+
+    def explicit_pad(*args):
+        pads.append(real(*args))
+        return pads[-1]
+
+    want_calls = {"bn_prelu": 38 * (act == "prelu"), "bn_leaky": 38 * (act == "leaky"),
+                  "bn_add": 0}
+    nn.set_padding_mode(padding)
+    try:
+        with torch.no_grad():
+            nn.explicit_pad = explicit_pad
+            try:
+                got = retinaface.retinaface_forward(params, x)
+            finally:
+                nn.explicit_pad = real
+        assert calls == want_calls
+        want = retinaface.retinaface_forward(params, x.clone().requires_grad_(True))
+        assert calls == want_calls
+    finally:
+        nn.set_padding_mode("same")
+    assert [p for p in pads if p is not None] == ([(1, 1)] * 2 if padding == "same" else [])
+    for k in ("loc", "ldm", "score", "cls_logits"):
+        assert want[k].requires_grad and torch.equal(got[k], want[k].detach()), k
+
+
 def test_training_and_recorded_forwards_never_reach_the_wrappers(monkeypatch):
     """train=True (batch statistics), and a forward whose parameters require
-    grad, take the block forward: the wrappers are never called."""
+    grad (iresnet's, and the detector's as its trainer runs it), take the
+    eager forward: the wrappers are never called."""
     def refuse(*args, **kw):
         raise AssertionError("the wrapper was reached")
 
     monkeypatch.setattr(bn_act_cuda, "bn_prelu", refuse)
+    monkeypatch.setattr(bn_act_cuda, "bn_leaky", refuse)
     monkeypatch.setattr(bn_act_cuda, "bn_add", refuse)
     params = convert_params(iresnet.init_iresnet(0, "iresnet18", 64))
     x = torch.from_numpy(np.random.default_rng(3).normal(0, 0.5, (2, 112, 112, 3))
@@ -220,3 +287,10 @@ def test_training_and_recorded_forwards_never_reach_the_wrappers(monkeypatch):
     assert emb.requires_grad
     with torch.no_grad(), pytest.raises(AssertionError, match="reached"):
         iresnet.iresnet_forward(params, x)
+    # the detector as its trainer runs it: parameters that require grad
+    det = convert_params(retinaface.init_retinaface(0))
+    det["stem"]["conv"]["w"].requires_grad_(True)
+    out = retinaface.retinaface_forward(det, x[:1, :64, :64])
+    assert out["score"].requires_grad
+    with torch.no_grad(), pytest.raises(AssertionError, match="reached"):
+        retinaface.retinaface_forward(det, x[:1, :64, :64])

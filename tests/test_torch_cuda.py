@@ -363,11 +363,16 @@ def test_iresnet18_on_the_card_matches_cpu(cuda, dtype):
         assert (np.sum(got * want, 1) / np.linalg.norm(got, axis=1) / np.linalg.norm(want, axis=1)).min() >= 0.99
 
 
-# --- the iresnet chains' one-pass kernel (csrc/bn_act.cu) -------------------------
+# --- the chains' one-pass kernel (csrc/bn_act.cu): iresnet's and RetinaFace's --------
 
 # iresnet50's activations after its convs: (C, H = W)
 R50_SHAPES = [(64, 112), (64, 56), (128, 56), (128, 28), (256, 28), (256, 14), (512, 14), (512, 7)]
-BN_ACT_MODES = ("stem", "prelu", "prelu_pad", "add", "add_last", "down", "down_last")
+BN_ACT_MODES = ("stem", "prelu", "prelu_pad", "leaky", "leaky_pad", "add", "add_last", "down",
+                "down_last")
+# RetinaFace's activations after its activated convs at det 640: (C, H = W)
+DET_SHAPES = [(8, 320), (16, 320), (16, 160), (32, 160), (32, 80), (64, 80), (64, 40), (128, 40),
+              (128, 20), (256, 20), (16, 80), (16, 40), (16, 20)]
+DET_MODES = ("leaky", "leaky_pad", "prelu", "prelu_pad")
 
 
 def _bn_dict(rng, c, dev):
@@ -381,6 +386,8 @@ def _bn_act_call(mode, x, sc, p):
     """The mode through the wrapper: (r or y, u), None where not written."""
     from frp_tpu_torch.ops import bn_act_cuda
 
+    if mode.startswith("leaky"):
+        return bn_act_cuda.bn_leaky(x, p["bn"], pad=(1, 1) if mode == "leaky_pad" else None), None
     if mode in ("stem", "prelu", "prelu_pad"):
         got = bn_act_cuda.bn_prelu(x, p["bn"], p["act"],
                                    bn_next=p["bn_next"] if mode == "stem" else None,
@@ -402,10 +409,11 @@ def _bn_act_f32(mode, x, sc, p):
 
     s, t = fold(p["bn"])
     v = x.float() * s + t
-    if mode in ("stem", "prelu", "prelu_pad"):
-        a = nn._cast(p["act"], "alpha", x.dtype).float()[:, None, None]
+    if mode in ("stem", "prelu", "prelu_pad", "leaky", "leaky_pad"):
+        a = (0.1 if mode.startswith("leaky")
+             else nn._cast(p["act"], "alpha", x.dtype).float()[:, None, None])
         v = torch.where(v >= 0, v, a * v)
-        if mode == "prelu_pad":
+        if mode.endswith("_pad"):
             return torch.nn.functional.pad(v, (0, 1, 0, 1)), None
     else:
         d = sc.float()
@@ -414,7 +422,7 @@ def _bn_act_f32(mode, x, sc, p):
             d = d * sd + td
         v = d + v
     u = None
-    if mode not in ("prelu", "prelu_pad"):
+    if mode not in ("prelu", "prelu_pad", "leaky", "leaky_pad"):
         s1, t1 = fold(p["bn_next"])
         u = v * s1 + t1
     return (None if mode.endswith("_last") else v), u
@@ -462,15 +470,51 @@ def test_bn_act_kernel_matches_its_twin_in_f32_rounded_once(cuda, c, h):
                     assert torch.equal(g, w), (mode, float((g - w).abs().max()))
                 else:
                     assert _ulps(g, w.to(dtype)) <= 1, (mode, _ulps(g, w.to(dtype)))
-            if mode == "prelu_pad":
+            if mode.endswith("_pad"):
                 assert not got[0][:, :, h].any() and not got[0][..., h].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", DET_SHAPES)
+def test_bn_act_detector_modes_are_exact(cuda, c, h):
+    """RetinaFace's modes (BN with leaky ReLU at 0.1 or PReLU, each also
+    into a stride-2 conv's padded input) at each of the detector's
+    activation shapes at det 640, 8 frames: in bf16 0 ulps from the chain
+    computed in f32 and rounded once; in f32 equal to the eager chain (the
+    plain twins, run on the card) bit for bit; the padded border zero."""
+    from frp_tpu_torch.ops import bn_act_cuda
+
+    rng = np.random.default_rng(c * 1000 + h + 7)
+    layers = {"bn": _bn_dict(rng, c, cuda),
+              "act": {"alpha": torch.from_numpy(rng.uniform(0.05, 0.45, c).astype(np.float32)).to(cuda)}}
+    act = torch.from_numpy(rng.normal(0, 1.5, (8, h, h, c)).astype(np.float32)).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = act.to(dtype).permute(0, 3, 1, 2)
+        for mode in DET_MODES:
+            pad = (1, 1) if mode.endswith("_pad") else None
+            before = bn_act_cuda.KERNEL.launches
+            got, _ = _bn_act_call(mode, x, None, layers)
+            torch.cuda.synchronize()
+            assert bn_act_cuda.KERNEL.launches == before + 1
+            if dtype == torch.float32:
+                want = (bn_act_cuda.bn_leaky_plain(x, layers["bn"], 0.1, pad) if mode.startswith("leaky")
+                        else bn_act_cuda.bn_prelu_plain(x, layers["bn"], layers["act"], pad=pad))
+                assert torch.equal(got, want), (mode, float((got - want).abs().max()))
+            else:
+                want = _bn_act_f32(mode, x, None, layers)[0].to(dtype)
+                assert _ulps(got, want) == 0, (mode, _ulps(got, want))
+            assert got.dtype == dtype and got.shape == want.shape, mode
+            assert got.is_contiguous(memory_format=torch.channels_last), mode
+            if pad is not None:
+                assert not got[:, :, h].any() and not got[..., h].any()
 
 
 @pytest.mark.cuda
 def test_bn_act_refuses_what_it_cannot_take_on_the_card(cuda):
     """A CUDA activation that is not channels-last, of float16 or float64,
-    or a shortcut of another shape raises before any launch; nothing falls
-    back to the twin."""
+    a shortcut of another shape, or a bf16 vector of slopes standing in for
+    the leaky slope raises before any launch; nothing falls back to the
+    twin."""
     from frp_tpu_torch.ops import bn_act_cuda
 
     rng = np.random.default_rng(0)
@@ -486,6 +530,8 @@ def test_bn_act_refuses_what_it_cannot_take_on_the_card(cuda):
     with pytest.raises(ValueError, match="shortcut"):
         x = x.contiguous(memory_format=torch.channels_last)
         bn_act_cuda.bn_add(x, bn, x[:1], bn)
+    with pytest.raises(ValueError, match="slope"):
+        bn_act_cuda.bn_leaky(x, bn, torch.full((64,), 0.1, device=cuda, dtype=torch.bfloat16))
     assert bn_act_cuda.KERNEL.launches == before
 
 
@@ -543,6 +589,86 @@ def test_bn_act_launches_once_for_the_stem_and_twice_a_block(cuda):
         before = bn_act_cuda.KERNEL.launches
         iresnet_forward(params, x, train=True)
         assert bn_act_cuda.KERNEL.launches == before
+
+
+def _detector(act: str, dev) -> dict:
+    """The shipped detector (leaky ReLU) or a seeded one with learned slopes
+    and fitted-looking BN stats (PReLU, as a real det export imports)."""
+    from frp_tpu_torch.engine.pipeline import load_any
+    from frp_tpu_torch.models.retinaface import init_retinaface
+    from frp_tpu_torch.testing.onnx_export import realistic_stats
+
+    if act == "leaky":
+        tree = load_any(os.path.join(REPO, "weights", "retinaface_synthetic.npz"), init_retinaface(0))
+    else:
+        tree = realistic_stats(init_retinaface(3, act="prelu"), np.random.default_rng(4),
+                               gamma=(0.5, 1.5))
+    return convert_params(tree, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["same", "torch"])
+@pytest.mark.parametrize("act", ["leaky", "prelu"])
+def test_retinaface_forward_through_the_pass_equals_the_eager_forward_in_f32(cuda, act, padding):
+    """Two rendered 640 frames, f32 (TF32 off): the inference forward
+    launches the pass 38 times (one an activated conv) and its outputs equal
+    the eager forward's bit for bit (taken when the input requires grad,
+    which launches none), with leaky ReLU and with PReLU, in both padding
+    modes (the stride-2 depthwise convs' padded inputs written by the pass
+    under "same")."""
+    from frp_tpu_torch.models import nn
+    from frp_tpu_torch.models.retinaface import retinaface_forward
+    from frp_tpu_torch.ops import bn_act_cuda
+
+    params = _detector(act, cuda)
+    frames = np.stack([make_scene(640, np.random.default_rng(50 + i), max_faces=3)[0]
+                       for i in range(2)]).astype(np.float32)
+    x = torch.from_numpy((frames - 127.5) / 128.0).to(cuda)
+    nn.set_padding_mode(padding)
+    try:
+        before = bn_act_cuda.KERNEL.launches
+        with torch.no_grad():
+            got = retinaface_forward(params, x)
+        assert bn_act_cuda.KERNEL.launches == before + 38
+        want = retinaface_forward(params, x.clone().requires_grad_(True))
+        assert bn_act_cuda.KERNEL.launches == before + 38
+    finally:
+        nn.set_padding_mode("same")
+    for k in ("loc", "ldm", "score", "cls_logits"):
+        assert torch.equal(got[k], want[k].detach()), (k, float((got[k] - want[k]).abs().max()))
+
+
+@pytest.mark.cuda
+def test_retinaface_bf16_forward_through_the_pass_finds_the_eager_forwards_faces(cuda):
+    """Two ticks of the bench's stream (8 1080p cameras of rendered faces),
+    letterboxed to 640, through the shipped detector in bf16 and the fused
+    detection head: valid and count of the forward through the pass equal
+    the eager forward's."""
+    from frp_tpu_torch.bench import Scene
+    from frp_tpu_torch.engine.batching import letterbox
+    from frp_tpu_torch.models.retinaface import retinaface_forward
+
+    params = _detector("leaky", cuda)
+    scene = Scene(np.random.default_rng(11))
+    frames = []
+    for _ in range(2):
+        scene.advance()
+        frames += [letterbox(cam, 640, to_rgb=True)[0] for cam in scene.cams]
+    x = ((torch.from_numpy(np.stack(frames)).to(cuda).float() - 127.5) / 128.0).to(torch.bfloat16)
+    priors = torch.from_numpy(generate_anchors(640).copy()).to(cuda)
+
+    def head(det):
+        with torch.no_grad():
+            return detection_cuda.fused_detection_head(
+                det["loc"].detach(), det["ldm"].detach(), det["score"].detach(), priors,
+                image_size=640.0, pre_topk=256, max_out=16)
+
+    with torch.no_grad():
+        got = head(retinaface_forward(params, x))
+    want = head(retinaface_forward(params, x.clone().requires_grad_(True)))
+    assert int(want["count"].sum()) > 0
+    assert torch.equal(got["count"], want["count"]), (got["count"], want["count"])
+    assert torch.equal(got["valid"], want["valid"])
 
 
 # --- the ViT's residual add and LayerNorm in one pass (csrc/add_ln.cu) ----------
