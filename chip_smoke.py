@@ -40,16 +40,19 @@ Phases, each printed on its own lines, in order:
             38 for each inference forward of the detector, counted by
             wrappers of ``iresnet_forward`` and ``retinaface_forward`` apart
             from the pass.
-            The ViT's add-LN pass (add_ln, which replaces no TPU kernel
-            either) at vitl.stream's rung, [1664 x 144, 768] bf16, in its
-            two kinds of site there (``ADD_LN_CASES``): a block's add with
-            the LN after it, r and LN(r) written, and the last add with the
-            float32 final LN, LN(r) alone: r equal to x + d rounded once,
-            LN(r) within 1 bf16 ulp of the kernel's arithmetic in f32
-            rounded once (the plain version ``add_ln_f32``, the same sums in
-            the same order), timed beside it, beside its bound
-            (bytes over 3.35 TB/s) and beside the eager add and LN it
-            replaced.
+            The add-LN pass (add_ln, which replaces no TPU kernel either)
+            at the embed rung of 1664 faces, bf16, at each shape the cells
+            run it (``ADD_LN_CASES``): the ViT-L's [1664 x 144, 768] in its
+            two kinds of site, a block's add with the LN after it (r and
+            LN(r) written) and the last add with the float32 final LN
+            (LN(r) alone), and the Swin-T's four residual streams
+            [1664 x 3136, 96], [1664 x 784, 192], [1664 x 196, 384] and
+            [1664 x 49, 768], a block's add, and its last add at
+            [1664 x 49, 768]: r equal to x + d rounded once, LN(r) equal to
+            the kernel's arithmetic in f32 rounded once (0 ulps; the plain
+            version ``add_ln_f32``, the same sums in the same order), timed
+            beside it, beside its bound (bytes over 3.35 TB/s) and beside
+            the eager add and LN it replaced.
 4. engine   the port's RecognitionEngine on cuda in the default profile (det
             640, 16 slots, top-256, bf16, spoof and quality on, MobileFaceNet,
             the shipped weights) over a DeltaEncoder stream of 8 rendered 640
@@ -372,9 +375,10 @@ def _owe(model: str, launches: int) -> None:
 
 def count_forwards() -> None:
     """Wrap ``iresnet_forward`` and ``retinaface_forward`` in their modules
-    and in the engine's (before any engine is built) so that each inference
-    forward of a CUDA input adds the launches it owes to ``_owed``; a
-    training forward, or one autograd records, owes none."""
+    and in the engine's, its arch table ``EMBEDDERS`` included (before any
+    engine is built), so that each inference forward of a CUDA input adds
+    the launches it owes to ``_owed``; a training forward, or one autograd
+    records, owes none."""
     base_iresnet, base_detector = iresnet.iresnet_forward, retinaface.retinaface_forward
 
     def counted_iresnet(params, x, normalize=True, train=False, bn_group=None):
@@ -391,6 +395,9 @@ def count_forwards() -> None:
 
     iresnet.iresnet_forward = pipeline.iresnet_forward = counted_iresnet
     retinaface.retinaface_forward = pipeline.retinaface_forward = counted_detector
+    for arch, (init, forward) in pipeline.EMBEDDERS.items():
+        if forward is base_iresnet:
+            pipeline.EMBEDDERS[arch] = (init, counted_iresnet)
 
 
 def reset_launches() -> None:
@@ -882,12 +889,21 @@ def check_bn_act(dev) -> dict:
     return out
 
 
-# the ViT's add-LN pass (csrc/add_ln.cu) at vitl.stream's embed rung: 1664
-# faces of 144 tokens, width 768; name -> whether the site is the last (the
-# final LN in float32, r not written)
-ADD_LN_ROWS = 1664 * 144
-ADD_LN_WIDTH = 768
-ADD_LN_CASES = {"block": False, "last": True}
+# the add-LN pass (csrc/add_ln.cu) at the embed rung of 1664 faces: name ->
+# (rows, width, whether the site is the last: the final LN in float32, r not
+# written); the ViT-L's 144 tokens of 768 (vitl.stream), the Swin-T's four
+# residual streams (swint.stream: 3136 tokens of 96, 784 of 192, 196 of 384,
+# 49 of 768)
+ADD_LN_RUNG = 1664
+ADD_LN_CASES = {
+    "block": (ADD_LN_RUNG * 144, 768, False),
+    "last": (ADD_LN_RUNG * 144, 768, True),
+    "swin_s1": (ADD_LN_RUNG * 3136, 96, False),
+    "swin_s2": (ADD_LN_RUNG * 784, 192, False),
+    "swin_s3": (ADD_LN_RUNG * 196, 384, False),
+    "swin_s4": (ADD_LN_RUNG * 49, 768, False),
+    "swin_last": (ADD_LN_RUNG * 49, 768, True),
+}
 
 
 def add_ln_call(route: str, x: torch.Tensor, d: torch.Tensor, ln: dict, last: bool) -> tuple:
@@ -901,10 +917,10 @@ def add_ln_call(route: str, x: torch.Tensor, d: torch.Tensor, ln: dict, last: bo
 
 
 def check_add_ln(dev) -> dict:
-    """The ViT's add-LN pass at vitl.stream's rung, bf16, at each site kind
+    """The add-LN pass at the embed rung, bf16, at each shape and site kind
     of ``ADD_LN_CASES``: r held equal to the f32 sum rounded once and LN(r)
-    within 1 bf16 ulp of the kernel's arithmetic in f32 rounded once
-    (``add_ln_f32``, the plain version), timed beside it, beside its bound
+    equal to the kernel's arithmetic in f32 rounded once (``add_ln_f32``,
+    the plain version, 0 ulps), timed beside it, beside its bound
     (x and d read once, r and LN(r) written once, over 3.35 TB/s) and
     beside the eager add and LN the forward ran before (``library_ms``, a
     yardstick the port no longer runs), with its largest difference from
@@ -912,11 +928,10 @@ def check_add_ln(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     out = {}
-    for name, last in ADD_LN_CASES.items():
-        w = ADD_LN_WIDTH
+    for name, (rows, w, last) in ADD_LN_CASES.items():
         ln = {"gamma": torch.from_numpy(rng.uniform(0.8, 1.2, w).astype(np.float32)).to(dev),
               "beta": torch.from_numpy(rng.normal(0, 0.2, w).astype(np.float32)).to(dev)}
-        x, d = (torch.randn((ADD_LN_ROWS, w), generator=gen, device=dev).to(torch.bfloat16)
+        x, d = (torch.randn((rows, w), generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2))
 
         def run(route):
@@ -927,7 +942,7 @@ def check_add_ln(dev) -> dict:
         if (got[0] is None) != last or (not last and not torch.equal(got[0], want[0])):
             raise AssertionError(f"add_ln {name}: r is not x + d rounded once")
         ulps = bf16_ulps(got[1], want[1])
-        if ulps > 1:
+        if ulps:
             raise AssertionError(f"add_ln {name}: {ulps} bf16 ulps from its f32 arithmetic "
                                  "rounded once")
         err, lib_err = max_err(got[1], want[1]), max_err(got[1], eager[1])
@@ -936,7 +951,7 @@ def check_add_ln(dev) -> dict:
         bound_ms, bound_by = bound(2 * (2 * n + (1 if last else 2) * n)
                                    + 2 * w * (4 if last else 2), 0)
         out[name] = dict(
-            shape=[ADD_LN_ROWS, w], max_ulps=ulps, max_abs_err=err,
+            shape=[rows, w], max_ulps=ulps, max_abs_err=err,
             ms=device_ms(lambda: run("kernel")), bound_ms=bound_ms, bound_by=bound_by,
             plain_ms=device_ms(lambda: run("f32"), reps=10, host_bound=True),
             library_ms=device_ms(lambda: run("eager"), reps=20, host_bound=True),
@@ -4237,8 +4252,8 @@ def main() -> int:
         "engine": scan["chains"]["launches"], "accuracy": acc["chains"]["launches"],
         "imported": imp["chains"]["launches"],
         "diagnostics": sum(r["chains"]["launches"] for r in dg["runs"].values())}, **chains))
-    # the ViT's add-LN pass: no TPU kernel, and no phase runs a ViT forward;
-    # its numbers at vitl.stream's shapes (phase 3)
+    # the add-LN pass: no TPU kernel, and no phase runs a ViT or a Swin
+    # forward; its numbers at vitl.stream's and swint.stream's shapes (phase 3)
     rows.append(kernel_row(add_ln_cuda.KERNEL, **passes))
     say("done", f"the whole run took {time.perf_counter() - t_run:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -51,7 +51,7 @@ class Config:
     encode_cache_size: int = 256         # FACE_CACHE_SIZE
     min_face_quality: float = 50.0       # MIN_FACE_QUALITY upload gate (face.py:221-238)
     embed_dim: int = 128                 # EMBED_DIM — dlib-compatible 128-d default
-    embedder_arch: str = "mobilefacenet"  # EMBEDDER_ARCH: mobilefacenet | iresnet18/34/50/100 | vit_l
+    embedder_arch: str = "mobilefacenet"  # EMBEDDER_ARCH: mobilefacenet | iresnet18/34/50/100 | vit_l | swin_t
     # EMBED_FLIP_TTA: embed the aligned crop AND its horizontal mirror,
     # renormalize the sum — synthetic identities are bilaterally symmetric
     # (train/synthetic.py make_identity), so the mirror is the same identity

@@ -11,7 +11,7 @@ decode + ``nms_padded_batched``, so every call launches kernel 3).
       └ detect: RetinaFace -> top-K -> fused head    (ops/detection_cuda.py, kernel 1)
       └ crop: 5-point similarity -> bilinear warp    (ops/align_cuda.py, kernel 2)
               + quality scores
-      └ embed: MobileFaceNet, iresnet or ViT (+ flip-TTA), x distance scale,
+      └ embed: MobileFaceNet, iresnet, ViT or Swin (+ flip-TTA), x distance scale,
                MobileNetV3 spoof; valid slots compacted into a rung
       └ match_pack: gallery match, packed [B, M, 22]
     fetch: one device->host copy, unpacked on the host
@@ -66,6 +66,7 @@ from frp_tpu_torch.models.params import (
     same_structure,
 )
 from frp_tpu_torch.models.retinaface import init_retinaface, retinaface_forward
+from frp_tpu_torch.models.swin import SWIN_VARIANTS, init_swin, swin_forward
 from frp_tpu_torch.models.vit import VIT_VARIANTS, init_vit, vit_forward
 from frp_tpu_torch.ops.align import (
     ARCFACE_TEMPLATE_112,
@@ -92,8 +93,18 @@ from frp_tpu_torch.utils.profiling import span
 logger = get_logger("frp.engine")
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-# the config's embedder_arch values the engine builds
-EMBEDDER_ARCHS = ("mobilefacenet", *IRESNET_VARIANTS, *VIT_VARIANTS)
+# the config's embedder_arch values the engine builds: arch -> (its seeded
+# init, called (seed, arch, embed_dim); its forward, a ViT's bound to its
+# variant's head count)
+EMBEDDERS = {
+    "mobilefacenet": (lambda seed, arch, dim: init_mobilefacenet(seed, embed_dim=dim),
+                      mobilefacenet_forward),
+    **dict.fromkeys(IRESNET_VARIANTS, (init_iresnet, iresnet_forward)),
+    **{arch: (init_vit, functools.partial(vit_forward, heads=v["heads"]))
+       for arch, v in VIT_VARIANTS.items()},
+    **dict.fromkeys(SWIN_VARIANTS, (init_swin, swin_forward)),
+}
+EMBEDDER_ARCHS = tuple(EMBEDDERS)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -165,9 +176,9 @@ def build_stages(
     to the card. The detect stage's head is the fused detection head
     (kernel 1), as the JAX stages' on a TPU; ``fused_head=False`` takes
     decode + ``nms_padded_batched`` (kernel 3), the head of the JAX
-    ``build_pipeline``. ``embedder_forward`` is MobileFaceNet's, iresnet's
-    or the ViT's forward; ``flip_tta`` adds a forward of the mirrored crops.
-    The embed stage's compaction (``embed_compact_rungs``) reads
+    ``build_pipeline``. ``embedder_forward`` is MobileFaceNet's, iresnet's,
+    the ViT's or the Swin's forward; ``flip_tta`` adds a forward of the
+    mirrored crops. The embed stage's compaction (``embed_compact_rungs``) reads
     FRP_EMBED_COMPACT and FRP_EMBED_RUNGS here, once; ``compact=False``
     leaves it out whatever they say (``build_pipeline``, as the JAX one)."""
     cdtype = getattr(torch, compute_dtype)
@@ -584,7 +595,10 @@ class RecognitionEngine:
     ``frp.match``; in a fetch ``frp.to_host`` around each device-to-host
     copy and ``frp.redo`` around a redo's embed and match. A ViT embedder
     opens ``frp.vit.attn``, ``frp.vit.sdpa`` and ``frp.vit.mlp`` in each
-    block inside ``frp.embed`` (``models/vit.py``).
+    block inside ``frp.embed`` (``models/vit.py``); a Swin embedder
+    ``frp.swin.attn`` (in it ``frp.swin.window`` and ``frp.swin.sdpa``),
+    ``frp.swin.mlp`` and, between stages, ``frp.swin.merge``
+    (``models/swin.py``).
 
     ``cfg.embedder_arch`` is one of ``EMBEDDER_ARCHS``; any other raises
     ValueError naming them.
@@ -619,18 +633,10 @@ class RecognitionEngine:
         arch = self.cfg.embedder_arch
         self._allow_stale_calibration = allow_stale_calibration
         self.preferred_fmt = "yuv420"
-        if arch in IRESNET_VARIANTS:
-            embedder = init_iresnet(seed + 1, variant=arch, embed_dim=self.cfg.embed_dim)
-            self._embedder_forward = iresnet_forward
-        elif arch in VIT_VARIANTS:
-            embedder = init_vit(seed + 1, variant=arch, embed_dim=self.cfg.embed_dim)
-            self._embedder_forward = functools.partial(vit_forward,
-                                                       heads=VIT_VARIANTS[arch]["heads"])
-        elif arch == "mobilefacenet":
-            embedder = init_mobilefacenet(seed + 1, embed_dim=self.cfg.embed_dim)
-            self._embedder_forward = mobilefacenet_forward
-        else:
+        if arch not in EMBEDDERS:
             raise ValueError(f"embedder_arch {arch!r}: one of {list(EMBEDDER_ARCHS)}")
+        init, self._embedder_forward = EMBEDDERS[arch]
+        embedder = init(seed + 1, arch, self.cfg.embed_dim)
         host_params = {
             "detector": init_retinaface(seed),
             "embedder": embedder,

@@ -817,6 +817,145 @@ def test_vit_forward_through_the_pass_matches_the_reference(cuda, variant):
         assert got.dtype == torch.float32 and dist <= tol, (dtype, dist, tol)
 
 
+# --- the Swin-T embedder (models/swin.py) and add_ln at its widths -----------
+
+# the Swin's residual streams [K x grid^2, C] at 8 faces: stages 1-4
+SWIN_ROWS = [(8 * 3136, 96), (8 * 784, 192), (8 * 196, 384), (8 * 49, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,w", SWIN_ROWS)
+def test_add_ln_at_the_swins_widths_equals_its_twin(cuda, rows, w):
+    """The pass at the Swin's four widths (96, 192 and 384 leave lanes of
+    the row's warp idle: 12, 24 and 48 vectors a bf16 row), each residual
+    site the Swin runs: r and LN(r) equal to ``add_ln_f32`` in bf16 and
+    f32 (0 ulps), and the last site's float32 LN at 768."""
+    from frp_tpu_torch.ops import add_ln_cuda
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for site in ("proj", "last") if w == 768 else ("proj",):
+            last = site == "last"
+            x, d, ln = _add_ln_case(site, 1, rows, w, dtype, cuda)
+            before = add_ln_cuda.KERNEL.launches
+            r, u = add_ln_cuda.add_ln(x, d, ln, 1e-5, last=last)
+            torch.cuda.synchronize()
+            assert add_ln_cuda.KERNEL.launches == before + 1
+            want_r, want_u = add_ln_cuda.add_ln_f32(x, d, ln, 1e-5, last=last)
+            if not last:
+                assert torch.equal(r, want_r), (site, dtype)
+            assert u.dtype == dtype and torch.equal(u, want_u), (site, dtype)
+
+
+def _swin_weights(seed: int, sizes: dict, dim: int) -> dict:
+    """tests/test_torch_swin.py's ``_weights``, copied (that file imports
+    ``tests.swin_reference``; this one loads the reference by its path):
+    larger biases, LN gammas and BN variances U(0.8, 1.2), the
+    relative-position tables N(0, 2), the last stage's qkv weights at twice
+    their He scale."""
+    from frp_tpu_torch.models import swin
+    from frp_tpu_torch.models.params import _unflatten, flatten_params
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    last_stage = f"stages/{len(sizes['depths']) - 1}/"
+    for k, v in flatten_params(swin.init_swin(rng, embed_dim=dim, **sizes)).items():
+        last = k.rsplit("/", 1)[-1]
+        if last in ("gamma", "var"):
+            v = rng.uniform(0.8, 1.2, v.shape).astype(np.float32)
+        elif last in ("beta", "b", "mean"):
+            v = rng.normal(0.0, 0.2, v.shape).astype(np.float32)
+        elif last == "rel_bias":
+            v = rng.normal(0.0, 2.0, v.shape).astype(np.float32)
+        elif k.startswith(last_stage) and k.endswith("qkv/w"):
+            v = v * 2.0
+        out[k] = v
+    return _unflatten(out)
+
+
+def _swin_crops(seed: int, n: int) -> torch.Tensor:
+    """tests/test_torch_swin.py's ``_crops``: a smooth field plus noise."""
+    from frp_tpu_torch.ops.image import normalize_face
+
+    g = torch.Generator().manual_seed(seed)
+    field = torch.nn.functional.interpolate(torch.rand(n, 3, 7, 7, generator=g), size=(112, 112),
+                                            mode="bilinear", align_corners=False)
+    field = field.permute(0, 2, 3, 1)
+    return normalize_face((0.9 * field + 0.1 * torch.rand(n, 112, 112, 3, generator=g)) * 255.0)
+
+
+def _swin_tol(blocks: int, merges: int) -> float:
+    """tests/test_torch_swin.py's BF16_TOL at any depth: twice the RMS of
+    7 + 11 x blocks + 2 x merges independent bf16 roundings (101 at the
+    test's 8 blocks, 145 for Swin-T)."""
+    return 2 * np.sqrt((7 + 11 * blocks + 2 * merges) / 3) * 2.0 ** -8
+
+
+def _kernels_in(prof, span: str) -> list:
+    """The names of the device kernels and copies launched inside each host
+    span ``span`` of a profile, each op id's once."""
+    names, seen = [], set()
+    for top in (e for e in prof.events() if e.name == span):
+        todo = [top]
+        while todo:
+            e = todo.pop()
+            if e.kernels and e.id not in seen:
+                seen.add(e.id)
+                names += [k.name for k in e.kernels]
+            todo.extend(e.cpu_children)
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["small", "swin_t"])
+def test_swin_forward_on_the_card_matches_the_reference(cuda, variant):
+    """The Swin forward on the card, the test Swin (width 16) and Swin-T at
+    its published widths, on weights and crops drawn as
+    tests/test_torch_swin.py draws them: add_ln launches 2 x blocks - 3 times
+    a forward (21 for Swin-T: a stage's last add before merging is plain),
+    and the bf16 embeddings are within the derived tolerance of the float32
+    reference ``tests/swin_reference.py`` (on the card, TF32 off); the test
+    Swin at f32 within 1e-5. Inside ``frp.swin.sdpa`` the card runs the
+    fused attention kernels alone: no copy, pad or fill of a bias."""
+    from frp_tpu_torch.models import swin
+    from frp_tpu_torch.models.params import _unflatten, flatten_params
+    from frp_tpu_torch.ops import add_ln_cuda
+
+    spec = importlib.util.spec_from_file_location(
+        "swin_reference", os.path.join(REPO, "tests", "swin_reference.py"))
+    swin_reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(swin_reference)
+    small = dict(width=16, depths=(2, 2, 2, 2), heads=(1, 2, 4, 8))
+    sizes, dim, n = ((small, 64, 8) if variant == "small"
+                     else (swin.SWIN_VARIANTS["swin_t"], 512, 16))
+    tree = _swin_weights(7, sizes, dim)
+    dev_tree = _unflatten({k: torch.from_numpy(v).to(cuda)
+                           for k, v in flatten_params(tree).items()})
+    x = _swin_crops(7, n).to(cuda)
+    want = swin_reference.forward(dev_tree, x)
+    params = convert_params(tree, cuda)
+    blocks = sum(sizes["depths"])
+    dtypes = (torch.bfloat16, torch.float32) if variant == "small" else (torch.bfloat16,)
+    for dtype in dtypes:
+        before = add_ln_cuda.KERNEL.launches
+        with torch.no_grad():
+            got = swin.swin_forward(params, x.to(dtype))
+        assert add_ln_cuda.KERNEL.launches == before + 2 * blocks - 3
+        dist = float((got - want).norm(dim=1).max())
+        tol = _swin_tol(blocks, 3) if dtype == torch.bfloat16 else 1e-5
+        assert got.dtype == torch.float32 and dist <= tol, (dtype, dist, tol)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        swin.swin_forward(params, x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+    names = _kernels_in(prof, "frp.swin.sdpa")
+    # one call a run of windows: four in a shifted block, one in another
+    runs = sum(4 if swin.shift_of(56 >> s, i, 7) else 1
+               for s, depth in enumerate(sizes["depths"]) for i in range(depth))
+    assert len(names) == runs, names
+    odd = [k for k in names if not any(s in k.lower() for s in ("fmha", "attention", "cudnn"))]
+    assert not odd, odd
+
+
 @pytest.mark.cuda
 def test_accuracy_compaction_on_matches_off(cuda, monkeypatch):
     """The accuracy engine at full width on 8 rendered 640 scenes (128 slots:

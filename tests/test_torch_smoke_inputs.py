@@ -162,6 +162,30 @@ def test_embed_bound_counts_the_rung(smoke, monkeypatch):
     assert on["bytes"] < off["bytes"] and on["bound_by"] == "operations"
 
 
+def test_count_forwards_reaches_the_engines_arch_table(smoke, monkeypatch):
+    """The iresnet wrapper of ``count_forwards`` is the forward that an
+    engine built after it runs: the arch table's iresnet entries point at
+    it, and its other entries are left as they were."""
+    from frp_tpu_torch.config import load_config
+    from frp_tpu_torch.engine import pipeline
+    from frp_tpu_torch.models import iresnet, retinaface
+
+    for mod, name in ((iresnet, "iresnet_forward"), (pipeline, "iresnet_forward"),
+                      (retinaface, "retinaface_forward"), (pipeline, "retinaface_forward")):
+        monkeypatch.setattr(mod, name, getattr(mod, name))
+    for arch, entry in list(pipeline.EMBEDDERS.items()):
+        monkeypatch.setitem(pipeline.EMBEDDERS, arch, entry)
+    before = dict(pipeline.EMBEDDERS)
+    smoke.count_forwards()
+    counted = iresnet.iresnet_forward
+    assert counted is not before["iresnet50"][1]
+    for arch, (_, forward) in pipeline.EMBEDDERS.items():
+        assert forward is (counted if arch in iresnet.IRESNET_VARIANTS else before[arch][1]), arch
+    eng = pipeline.RecognitionEngine(load_config(embedder_arch="iresnet18", det_size=128),
+                                     device="cpu")
+    assert eng._embedder_forward is counted
+
+
 class _CpuEvent:
     """torch.cuda.Event's timing calls on the host clock."""
 

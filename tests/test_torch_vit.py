@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from frp_tpu_torch.config import load_config
+from frp_tpu_torch.engine import pipeline
 from frp_tpu_torch.engine.pipeline import EMBEDDER_ARCHS, RecognitionEngine, build_stages
 from frp_tpu_torch.models import vit
 from frp_tpu_torch.models.params import (
@@ -204,8 +205,12 @@ def test_engine_builds_and_loads_vit_l(monkeypatch, tmp_path):
     """``embedder_arch="vit_l"`` (its sizes cut for the CPU) through
     RecognitionEngine: ``vit_l.npz`` loaded by ``_load_weights``, and two
     batches, the second at a speculated rung, whose valid slots carry the
-    reference's embeddings of the engine's own crops."""
+    reference's embeddings of the engine's own crops. ``EMBEDDERS``' entry
+    is patched with the variant, as the table binds each ViT's head count
+    when it is built."""
     monkeypatch.setitem(vit.VIT_VARIANTS, "vit_l", SMALL)
+    monkeypatch.setitem(pipeline.EMBEDDERS, "vit_l",
+                        (vit.init_vit, functools.partial(vit.vit_forward, heads=SMALL["heads"])))
     monkeypatch.delenv("FRP_EMBED_COMPACT", raising=False)
     monkeypatch.delenv("FRP_EMBED_RUNGS", raising=False)
     for name in ("retinaface_synthetic.npz", "spoof.npz"):
@@ -238,7 +243,16 @@ def test_unknown_embedder_arch_raises():
     with pytest.raises(ValueError, match="vit_b.*mobilefacenet.*iresnet50.*vit_l"):
         RecognitionEngine(load_config(embedder_arch="vit_b", det_size=128), device="cpu")
     assert EMBEDDER_ARCHS == ("mobilefacenet", "iresnet18", "iresnet34", "iresnet50",
-                              "iresnet100", "vit_l")
+                              "iresnet100", "vit_l", "swin_t")
+
+
+def test_the_embedder_table_binds_each_vits_head_count():
+    """``EMBEDDERS`` is the one place the engine reads an arch from: a ViT's
+    forward there carries its variant's head count."""
+    for arch, v in vit.VIT_VARIANTS.items():
+        init, forward = pipeline.EMBEDDERS[arch]
+        assert init is vit.init_vit and forward.func is vit.vit_forward
+        assert forward.keywords == {"heads": v["heads"]}
 
 
 def test_no_span_without_a_profiler(monkeypatch):
